@@ -1,7 +1,7 @@
-"""dxrvoxelizer_tpu — TPU-native real-time solid voxelization engine.
+"""dxrvoxelizer_tpu — real-time solid voxelization engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of StarsX/DXRVoxelizer
-(reference: /root/reference): load a Wavefront-OBJ mesh, solid-voxelize it every
+A JAX/XLA/Pallas framework with the capabilities of StarsX/DXRVoxelizer:
+load a Wavefront-OBJ mesh, solid-voxelize it every
 frame into a dense 3D occupancy grid, and volume-ray-march that grid to screen.
 
 Two API tiers, mirroring the reference's Core (explicit DX12-style) and EZ
@@ -15,9 +15,10 @@ VoxelizerEZ.cpp):
 Subpackages:
 - ``utils``    — OBJ loader, DirectXMath-convention matrices, timer, image IO.
 - ``models``   — mesh / scene / camera state (the "model" of the workload).
-- ``ops``      — compute kernels: oracle (jax.numpy) + Pallas TPU kernels for
-                 voxelization and volume ray-marching.
-- ``parallel`` — jax.sharding Mesh helpers, multi-chip sharded passes,
+- ``ops``      — compute kernels: oracles (jax.numpy), the production
+                 voxelizers and renderers, and Pallas (Triton-route) GPU
+                 kernels picked per platform by ``ops/route.py``.
+- ``parallel`` — jax.sharding Mesh helpers, multi-card sharded passes,
                  batch data-generation.
 - ``app``      — CLI application (same flags as the reference:
                  ``-mesh <file> [x y z scale]``).

@@ -3,7 +3,7 @@
 The reference app (DXRVoxelizer/DXRVoxelizer.cpp) runs an interactive Win32
 loop with an orbit camera, 1 Hz FPS stats in the window title
 (CalculateFrameStats, :553-584), F11 PNG screenshots (:531-551) and runtime
-path switching with X (:295-297). Headless TPU analog:
+path switching with X (:295-297). Headless analog:
 
 - same CLI surface (``-mesh <file> [x y z scale]``, ``-warp`` -> CPU backend,
   ``-``/``/`` prefixes accepted, DXRVoxelizer.cpp:363-408) plus explicit
@@ -26,7 +26,7 @@ from dxrvoxelizer_tpu.utils.timer import StepTimer
 
 
 def _parse_extras(argv: list[str]) -> dict:
-    """TPU-build extension flags (reference-style prefixes)."""
+    """Extension flags beyond the reference's (reference-style prefixes)."""
     out = {
         "frames": 8,
         "out": None,
@@ -109,12 +109,12 @@ def main(argv: list[str] | None = None) -> int:
         select_backend,
     )
 
-    # device ladder: preferred accelerator, else CPU — the reference's
-    # discrete -> UMA -> WARP fallback analog (DXRVoxelizer.cpp:89-128);
-    # -warp maps straight to CPU (DXRVoxelizer.cpp:392)
+    # the accelerator, or the CPU only when asked: -warp maps to the CPU
+    # (DXRVoxelizer.cpp:392); a missing accelerator is an error, never a
+    # silent CPU fallback
     filter_benign_aot_noise()
-    enable_compile_cache()
     platform = select_backend("cpu" if cfg.backend == "cpu" else "default")
+    enable_compile_cache()
 
     engine = Engine(
         cfg,
@@ -189,7 +189,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from dxrvoxelizer_tpu.utils.profiling import device_trace
 
-    # -profile DIR: capture an XLA/TPU profiler trace of the frame loop
+    # -profile DIR: capture a JAX profiler trace of the frame loop
     # (the PIX-capture analog; view with tensorboard --logdir DIR)
     trace_ctx = (
         device_trace(extras["profile"]) if extras["profile"]
@@ -233,20 +233,14 @@ def main(argv: list[str] | None = None) -> int:
 
     if extras["ab"]:
         # runtime A/B of the two voxelizer paths (the reference's X-key
-        # Core/EZ switch analog, DXRVoxelizer.cpp:295-297): Pallas kernel vs
-        # jnp oracle must produce identical occupancy
-        import jax
-
+        # Core/EZ switch analog, DXRVoxelizer.cpp:295-297): the production
+        # voxelizer vs the jnp oracle must produce identical occupancy
         from dxrvoxelizer_tpu.core import render, voxelize
 
         engine.pipeline.mesh = base_mesh
-        # the oracle is selected to match the fast path's contract: the
-        # gen-2 raystab query runs radial-form intersections on accelerated
-        # backends, so its bit-exact ground truth is the radial oracle;
-        # everywhere else it is the Moller-Trumbore oracle
-        oracle = "xla"
-        if cfg.inside_mode == "raystab" and jax.default_backend() != "cpu":
-            oracle = "xla-radial"
+        # the binned raystab query runs radial-form intersections, so its
+        # bit-exact ground truth is the radial oracle
+        oracle = "xla-radial" if cfg.inside_mode == "raystab" else "xla"
         a = voxelize(base_mesh, cfg.grid_size, mode=cfg.inside_mode, impl="auto")
         b = voxelize(base_mesh, cfg.grid_size, mode=cfg.inside_mode, impl=oracle)
         same = bool((np.asarray(a.words) == np.asarray(b.words)).all())

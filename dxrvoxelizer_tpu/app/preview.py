@@ -2,7 +2,7 @@
 
 The reference presents every frame to a Win32 window (the WM_PAINT loop,
 Win32Application.cpp:205-211, drives SwapChain::Present,
-DXRVoxelizer.cpp:267). A headless TPU host has no display, so the analog is
+DXRVoxelizer.cpp:267). A headless GPU host has no display, so the analog is
 a localhost endpoint any browser can watch: a stdlib ThreadingHTTPServer
 serves an HTML page whose ``<img>`` re-fetches ``/frame.png`` as fast as
 frames arrive (self-paced: the next fetch starts when the previous one

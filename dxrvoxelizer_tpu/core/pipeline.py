@@ -18,7 +18,7 @@ import numpy as np
 
 from dxrvoxelizer_tpu.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu.models.scene import FrameConstants
-from dxrvoxelizer_tpu.ops import binning, voxelize_pallas, voxelize_ref
+from dxrvoxelizer_tpu.ops import voxelize_ref
 from dxrvoxelizer_tpu.ops.packing import quantize_r10g10b10a2, unpack_bits_z
 from dxrvoxelizer_tpu.ops.raymarch_fast import (
     precompute_light_volume,
@@ -75,21 +75,21 @@ def voxelize(
 ) -> VoxelGrid:
     """Solid-voxelize a mesh -> :class:`VoxelGrid`.
 
-    ``mode``: "parity" (axis-parity fill, TPU-native default) or "raystab"
+    ``mode``: "parity" (axis-parity fill, the default) or "raystab"
     (the reference's radial back-face rule, DXRVoxelizer.hlsl:132-140).
-    ``impl``: "auto" | "queue" | "pallas" | "pallas_bruteforce" | "xla"
-    (raystab also: "xla-radial") — for parity, "auto" picks the work-queue
-    Pallas kernel (ops/voxelize_queue.py) at >= 128^3, the gen-1 tiled
-    kernel at 64^3, and the jnp oracle on CPU backends; for raystab it
-    picks the binned fast path. "xla" is always the Moller-Trumbore
-    brute-force oracle (the reference's own rule, backend-independent);
-    "xla-radial" is the radial-form oracle that is bit-exact ground truth
-    for the gen-2 fast raystab query.
+    ``impl``: "auto" | "queue" | "xla" (raystab also: "xla-radial") — for
+    parity, "auto" picks the work-queue voxelizer (ops/voxelize_queue.py,
+    its fold chosen per platform by ops/route.py) wherever n % 32 == 0 and
+    the jnp oracle otherwise; for raystab it picks the binned fast path.
+    "xla" is always the brute-force oracle (for raystab the
+    Moller-Trumbore form, the reference's own rule); "xla-radial" is the
+    radial-form oracle that is bit-exact ground truth for the binned
+    raystab query.
     """
     from dxrvoxelizer_tpu.ops.packing import pack_bits_z
 
     if mode == "raystab":
-        if impl in ("auto", "fast", "queue", "pallas"):
+        if impl in ("auto", "fast", "queue"):
             # binned direction-space accel (ops/raystab_fast.py); a
             # stateless call rebuilds the accel — pass ``accel`` (or use
             # build_raystab_accel + raystab_query) for static geometry
@@ -109,16 +109,14 @@ def voxelize(
                 )
         elif impl == "xla":
             # the Moller-Trumbore brute-force oracle — the reference's own
-            # rule (DXR hardware MT intersection); backend-independent so
-            # the same mode never yields different boundary-tie voxels on
-            # CPU vs TPU
+            # rule (DXR hardware MT intersection)
             occ, rgba = voxelize_ref.voxelize_raystab_ref(
                 mesh.positions_norm, mesh.normals, mesh.tris, n=n
             )
         elif impl == "xla-radial":
-            # the radial-form oracle: bit-exact ground truth of the gen-2
-            # fast query (which contracts FMAs in radial form); differs
-            # from "xla" only on fp-boundary near-ties (ops/voxelize_ref.py)
+            # the radial-form oracle: bit-exact ground truth of the binned
+            # query; differs from "xla" only on fp-boundary near-ties
+            # (ops/voxelize_ref.py)
             occ, rgba = voxelize_ref.voxelize_raystab_radial_ref(
                 mesh.positions_norm, mesh.normals, mesh.tris, n=n
             )
@@ -131,22 +129,11 @@ def voxelize(
         raise ValueError(f"unknown inside mode {mode!r}")
 
     if impl == "auto":
-        if not _pallas_ok(n):
-            impl = "xla"
-        elif n >= 128:
-            impl = "queue"
-        else:
-            impl = "pallas"
+        impl = "queue" if _queue_ok(n) else "xla"
     if impl == "queue":
         from dxrvoxelizer_tpu.ops.voxelize_queue import voxelize_parity_queue
 
         words = voxelize_parity_queue(mesh.positions_norm, mesh.tris, n)
-    elif impl == "pallas":
-        words = binning.voxelize_parity_binned(mesh.positions_norm, mesh.tris, n)
-    elif impl == "pallas_bruteforce":
-        words = voxelize_pallas.voxelize_parity_bruteforce(
-            mesh.positions_norm, mesh.tris, n
-        )
     elif impl == "xla":
         occ = voxelize_ref.voxelize_parity_ref(mesh.positions_norm, mesh.tris, n=n)
         words = pack_bits_z(occ)
@@ -168,42 +155,20 @@ def _parity_rgba(mesh: MeshBuffers, words: jax.Array, n: int, accel=None,
     raystab mode uses (rule="hit" skips the back-face test) — gated by
     the parity occupancy bit."""
     occ_b = unpack_bits_z(words, n)
-    if jax.default_backend() == "cpu":
-        _, rgba_hit = voxelize_ref.voxelize_raystab_ref(
-            mesh.positions_norm, mesh.normals, mesh.tris, n=n, rule="hit"
+    if accel is None:
+        accel = _build_stab_accel(mesh, n)
+    if type(accel).__name__ == "RaystabAccel7":
+        from dxrvoxelizer_tpu.ops.raystab_tiled import raystab_query7
+
+        _, rgba_hit = raystab_query7(
+            mesh.positions_norm, mesh.normals, mesh.tris, accel, rule="hit",
         )
     else:
-        if accel is None:
-            if _use_tiled_raystab(n):
-                from dxrvoxelizer_tpu.ops.raystab_tiled import (
-                    build_raystab_accel7,
-                )
+        from dxrvoxelizer_tpu.ops.raystab_fast import raystab_query2
 
-                accel = build_raystab_accel7(
-                    mesh.positions_norm, mesh.tris, mesh.normals, n
-                )
-            else:
-                from dxrvoxelizer_tpu.ops.raystab_fast import (
-                    build_raystab_accel2,
-                )
-
-                accel = build_raystab_accel2(
-                    mesh.positions_norm, mesh.tris, mesh.normals, n
-                )
-        if type(accel).__name__ == "RaystabAccel7":
-            from dxrvoxelizer_tpu.ops.raystab_tiled import raystab_query7
-
-            _, rgba_hit = raystab_query7(
-                mesh.positions_norm, mesh.normals, mesh.tris, accel,
-                rule="hit",
-            )
-        else:
-            from dxrvoxelizer_tpu.ops.raystab_fast import raystab_query2
-
-            _, rgba_hit = raystab_query2(
-                mesh.positions_norm, mesh.normals, mesh.tris, accel,
-                rule="hit",
-            )
+        _, rgba_hit = raystab_query2(
+            mesh.positions_norm, mesh.normals, mesh.tris, accel, rule="hit",
+        )
     occ_f = occ_b.astype(jnp.float32)[..., None]
     rgba = jnp.concatenate(
         [rgba_hit[..., :3] * occ_f, occ_f], axis=-1
@@ -222,20 +187,10 @@ def _use_tiled_raystab(n: int) -> bool:
     return use_tiled_raystab(n)
 
 
-def _stab_accel_for(cfg, mesh):
-    """The raystab accel for (cfg, mesh) — gen-7 tiled or gen-2/4 cone
-    strips by grid size (_use_tiled_raystab) — through the on-disk cache
-    when ``cfg.accel_cache`` (the reference ships precompiled pipeline
-    blobs; utils/accel_cache.py is the AS-analog of that)."""
-    n = cfg.grid_size
-    tiled = _use_tiled_raystab(n)
-    if getattr(cfg, "accel_cache", True):
-        from dxrvoxelizer_tpu.utils import accel_cache as ac
-
-        fn = (ac.cached_build_raystab_accel7 if tiled
-              else ac.cached_build_raystab_accel2)
-        return fn(mesh.positions_norm, mesh.tris, mesh.normals, n)
-    if tiled:
+def _build_stab_accel(mesh, n: int):
+    """Fresh raystab accel: gen-7 tiles or gen-6 strips by grid size
+    (_use_tiled_raystab)."""
+    if _use_tiled_raystab(n):
         from dxrvoxelizer_tpu.ops.raystab_tiled import build_raystab_accel7
 
         return build_raystab_accel7(
@@ -244,14 +199,27 @@ def _stab_accel_for(cfg, mesh):
     from dxrvoxelizer_tpu.ops.raystab_fast import build_raystab_accel2
 
     return build_raystab_accel2(
-        mesh.positions_norm, mesh.tris, mesh.normals, cfg.grid_size
+        mesh.positions_norm, mesh.tris, mesh.normals, n
     )
 
 
-def _pallas_ok(n: int) -> bool:
-    if n % voxelize_pallas.TILE != 0:
-        return False
-    return jax.default_backend() != "cpu"
+def _stab_accel_for(cfg, mesh):
+    """The raystab accel for (cfg, mesh), through the on-disk cache when
+    ``cfg.accel_cache`` (the reference ships precompiled pipeline blobs;
+    utils/accel_cache.py is the AS-analog of that)."""
+    n = cfg.grid_size
+    if not getattr(cfg, "accel_cache", True):
+        return _build_stab_accel(mesh, n)
+    from dxrvoxelizer_tpu.utils import accel_cache as ac
+
+    fn = (ac.cached_build_raystab_accel7 if _use_tiled_raystab(n)
+          else ac.cached_build_raystab_accel2)
+    return fn(mesh.positions_norm, mesh.tris, mesh.normals, n)
+
+
+def _queue_ok(n: int) -> bool:
+    """The work queue covers every grid size that is a multiple of 32."""
+    return n % 32 == 0
 
 
 def render(
@@ -264,9 +232,8 @@ def render(
     """Ray-march a grid -> [H,W,3] float32 image.
 
     ``impl``: "warp" (shear-warp, the regular-access production path),
-    "gather" (loop-free per-sample gather path — exact light-march-free
-    semantics but gather-bound on TPU), or "ref" (the shader-exact
-    sequential reference). ``cfg.show_mip`` renders from that mip level of
+    "gather" (loop-free per-sample gather path), or "ref" (the
+    shader-exact sequential reference). ``cfg.show_mip`` renders from that mip level of
     the grid (SharedConst.h:5); ``cfg.use_mutex`` selects the float-grid
     sampling path (no 2-bit alpha quantization, PSRayCast.hlsl:42-46).
     """
@@ -357,17 +324,12 @@ class FramePipeline:
         """Build-once direction-space accel; rebuilt when ``self.mesh`` is
         replaced (the deforming-geometry path swaps the buffers object).
 
-        Deforming + raystab on accelerated backends goes through the
-        per-frame REFIT instead (ops/raystab_refit.py): pad-conservative
+        Deforming + raystab goes through the per-frame REFIT instead (ops/raystab_refit.py): pad-conservative
         id tables built once from the rest pose, coefficient/normal
         tables regathered on device each frame — the DXR AS-update
         analog. A full rebuild per frame costs seconds of host binning;
         the refit is a few device gathers."""
-        if (
-            self.deforming
-            and jax.default_backend() != "cpu"
-            and self.cfg.deform_pad > 0.0
-        ):
+        if self.deforming and self.cfg.deform_pad > 0.0:
             if self._refitter is None:
                 if _use_tiled_raystab(self.cfg.grid_size):
                     from dxrvoxelizer_tpu.ops.raystab_tiled import (
@@ -399,9 +361,8 @@ class FramePipeline:
                 )
             # validate the deformation contract (magnitude, axis, |s|
             # bound) on the FIRST refit frame — one host sync, then
-            # trust the caller (ADVICE r4: check=False every frame let
-            # an out-of-contract deformation silently produce
-            # non-conservative tables)
+            # trust the caller (an unchecked out-of-contract deformation
+            # would silently produce non-conservative tables)
             do_check = not self._refit_checked
             self._refit_checked = True
             return self._refitter.refit(
@@ -409,18 +370,7 @@ class FramePipeline:
                 check=do_check,
             )
         if self._stab_accel is None or self._stab_mesh is not self.mesh:
-            if jax.default_backend() == "cpu":
-                # CPU fallback keeps the gather-based XLA query (gen-1)
-                from dxrvoxelizer_tpu.ops.raystab_fast import (
-                    build_raystab_accel,
-                )
-
-                self._stab_accel = build_raystab_accel(
-                    self.mesh.positions_norm, self.mesh.tris,
-                    self.cfg.grid_size,
-                )
-            else:
-                self._stab_accel = _stab_accel_for(self.cfg, self.mesh)
+            self._stab_accel = _stab_accel_for(self.cfg, self.mesh)
             self._stab_mesh = self.mesh
         return self._stab_accel
 
@@ -435,7 +385,7 @@ class FramePipeline:
         if (
             self.cfg.inside_mode == "raystab"
             and self.vox_impl not in ("xla", "xla-radial")
-        ) or (want_normals and jax.default_backend() != "cpu"):
+        ) or want_normals:
             accel = self._raystab_accel()
         with jax.named_scope("voxelize"):
             if (
@@ -443,7 +393,7 @@ class FramePipeline:
                 and self.cfg.inside_mode == "parity"
                 and not want_normals
                 and self.vox_impl in ("auto", "queue")
-                and _pallas_ok(self.cfg.grid_size)
+                and _queue_ok(self.cfg.grid_size)
             ):
                 # fixed-topology deforming path: device-only queue rebuild,
                 # zero host syncs per frame (ops/voxelize_queue.py)
@@ -462,11 +412,11 @@ class FramePipeline:
             elif (
                 not self.deforming
                 and self.cfg.inside_mode == "parity"
-                and self.vox_impl in ("auto", "queue", "pallas")
-                and _pallas_ok(self.cfg.grid_size)
+                and self.vox_impl in ("auto", "queue")
+                and _queue_ok(self.cfg.grid_size)
             ):
                 # STATIC parity path: build the binned queue once and per
-                # frame only dispatch the kernel — the reference's
+                # frame only dispatch the fold — the reference's
                 # build-AS-once (Voxelizer.cpp:264-326) + per-frame
                 # DispatchRays-only (:351-369) split. Rebuilds only when
                 # the mesh object is swapped.
@@ -474,22 +424,14 @@ class FramePipeline:
                     self._static_vox is None
                     or self._static_vox_mesh is not self.mesh
                 ):
-                    n = self.cfg.grid_size
-                    use_queue = self.vox_impl == "queue" or (
-                        self.vox_impl == "auto" and n >= 128
+                    from dxrvoxelizer_tpu.ops.voxelize_queue import (
+                        StaticVoxelizer,
                     )
-                    if use_queue:
-                        from dxrvoxelizer_tpu.ops.voxelize_queue import (
-                            StaticVoxelizer,
-                        )
 
-                        self._static_vox = StaticVoxelizer(
-                            self.mesh.positions_norm, self.mesh.tris, n
-                        )
-                    else:
-                        self._static_vox = binning.StaticBinnedVoxelizer(
-                            self.mesh.positions_norm, self.mesh.tris, n
-                        )
+                    self._static_vox = StaticVoxelizer(
+                        self.mesh.positions_norm, self.mesh.tris,
+                        self.cfg.grid_size,
+                    )
                     self._static_vox_mesh = self.mesh
                 words = self._static_vox()
                 rgba = None

@@ -3,7 +3,7 @@
 The reference uploads interleaved VB/IB to GPU memory and builds a DXR
 BLAS over them in *normalized grid space* via the instance transform
 ``inverse(S(bound.w) * T(bound.xyz))`` (reference: Content/Voxelizer.cpp:115-138,
-304-310). The TPU-native equivalent: mesh arrays live in HBM as ``jax.Array``s,
+304-310). The equivalent here: mesh arrays live in device memory as ``jax.Array``s,
 and the "acceleration structure" input is the pre-transformed normalized-space
 triangle soup (v0, e1, e2 and per-triangle plane/edge equations are derived
 inside the voxelize ops).

@@ -1,6 +1,6 @@
 """Shared triangle setup for the parity (axis-ray) voxelizers.
 
-Both the jax.numpy oracle and the Pallas production kernel consume the exact
+Both the jax.numpy oracle and the production work queue consume the exact
 same per-triangle quantities computed by :func:`parity_tri_setup`, in the same
 float32 expression order, so their boundary tie-breaking agrees bit-for-bit
 (SURVEY.md section 7 "hard parts": bit-exact occupancy needs consistent
@@ -126,3 +126,25 @@ def column_crossing(pt: ParityTris, px: jnp.ndarray, py: jnp.ndarray):
     z = pt.zx * px + pt.zy * py + pt.zo
     m = jnp.ceil(z).astype(jnp.int32)
     return covered, m
+
+
+NCOEF = 16  # packed ParityTris coefficients per triangle
+
+# coefficient columns of the packed [T, NCOEF] matrix
+_EX0, _EY0, _EO0, _TL0 = 0, 1, 2, 3
+_EX1, _EY1, _EO1, _TL1 = 4, 5, 6, 7
+_EX2, _EY2, _EO2, _TL2 = 8, 9, 10, 11
+_ZX, _ZY, _ZO, _VALID = 12, 13, 14, 15
+
+
+def pack_coeffs(pt: ParityTris) -> jnp.ndarray:
+    """Stack the 16 per-triangle coefficients into a [T, NCOEF] f32 matrix."""
+    return jnp.stack(
+        [
+            pt.ex0, pt.ey0, pt.eo0, pt.tl0,
+            pt.ex1, pt.ey1, pt.eo1, pt.tl1,
+            pt.ex2, pt.ey2, pt.eo2, pt.tl2,
+            pt.zx, pt.zy, pt.zo, pt.valid,
+        ],
+        axis=1,
+    ).astype(jnp.float32)

@@ -1,9 +1,9 @@
 """Batched ray-triangle intersection primitives (jax.numpy).
 
-The TPU replacement for DXR's fixed-function ``TraceRay`` BVH traversal
+The replacement for DXR's fixed-function ``TraceRay`` BVH traversal
 (reference: DXRVoxelizer.hlsl:80): a no-culling Moller-Trumbore test over
 triangle chunks with a running closest-hit reduction. Everything is static
-shapes + ``lax.scan`` so XLA tiles the arithmetic onto the VPU.
+shapes + ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ def mt_hit(o, d, v0, e1, e2):
     on their leading axes (last axis = xyz). No backface culling; t >= 0
     (TMin = 0, TMax = 1e4, DXRVoxelizer.hlsl:76-77). t = +inf on miss.
 
-    Every implementation (the oracle's brute-force scan, the binned XLA
-    query, and the Pallas streaming kernel ops/raystab_pallas.py) shares
+    Every implementation (the oracle's brute-force scan and the gen-1
+    binned XLA query) shares
     this exact SCALARIZED expression sequence — component-wise cross/dot
     expansions, not jnp.cross/sum — so closest-hit results agree
     bit-for-bit even on boundary-exact hits where a different
@@ -86,7 +86,7 @@ def radial_setup(verts: jnp.ndarray, tris: jnp.ndarray):
     (w0+w1+w2 equals n . d with n = e1 x e2 because the three g_i sum to n.)
 
     Returns (g0, g1, g2 [T,3], c [T]) — 10 floats/triangle vs mt's 9, but
-    the per-pair test drops from ~60 to ~35 VPU ops. Expressions are
+    the per-pair test drops from ~60 to ~35 operations. Expressions are
     scalarized; :func:`radial_hit` must see these exact values.
     """
     v0 = verts[tris[:, 0]]
@@ -117,10 +117,11 @@ def radial_hit(dx, dy, dz, s0, g0x, g0y, g0z, g1x, g1y, g1z,
 
     All operands must be broadcast-compatible. This SCALARIZED expression
     sequence is shared verbatim by the radial oracle
-    (ops/voxelize_ref.voxelize_raystab_radial_ref) and the gen-2 Pallas
-    streaming kernel (ops/raystab_pallas._stab_kernel2) so closest-hit
-    winners agree bit-for-bit (same FMA contraction, same boundary
-    comparisons). Inclusive w_i >= 0 / <= 0 bounds match mt_hit's
+    (ops/voxelize_ref.voxelize_raystab_radial_ref) and both closest-hit
+    folds (ops/raystab_pallas.stab_fold_extract, raystab_fast.
+    fold_extract_xla) so winners agree bit-for-bit wherever the compilers
+    contract FMAs alike (on the CPU; on the GPU the occupancy stays exact
+    and normals move by a few ulp, see chip_smoke.py). Inclusive w_i >= 0 / <= 0 bounds match mt_hit's
     u >= 0, v >= 0, u + v <= 1 (hits on edges/vertices count).
     """
     w0 = dx * g0x + dy * g0y + dz * g0z

@@ -13,8 +13,7 @@ Grid convention (shared by every op in this package):
 
 Packed occupancy: the production voxelizer stores one bit per voxel packed
 along z into int32 words: ``occ_words[i, j, w]`` holds voxels
-``k = 32w .. 32w+31`` (bit ``k & 31``). A 256^3 grid is 2 MB — it fits VMEM
-whole, which is what makes the TPU ray-march and parity kernels fast.
+``k = 32w .. 32w+31`` (bit ``k & 31``). A 256^3 grid is 2 MB.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Production volume ray-marcher (TPU-native, loop-free).
+"""Gather volume ray-marcher (loop-free; the alternate render path).
 
 The reference's pixel shader (PSRayCast.hlsl:117-187) is a sequential
-128-step march with a nested 32-step light march. On TPU, sequential tiny
-loop bodies serialize the machine; the native formulation exploits that the
-march is *affine in the step index* and the breaks are *monotone*:
+128-step march with a nested 32-step light march. Sequential tiny loop
+bodies serialize an accelerator; this formulation exploits that the march
+is *affine in the step index* and the breaks are *monotone*:
 
 1. **Light volume precompute** — per voxel center, the reference's exact
    32-step directional light march (PSRayCast.hlsl:156-173) computed for all
@@ -13,8 +13,7 @@ march is *affine in the step index* and the breaks are *monotone*:
    ops/raymarch_ref.py keeps the exact semantics for golden tests.)
 2. **All-steps gather** — sample positions ``pos_s = entry + s * step`` do
    not depend on any carry, so all 128 densities arrive in one batched
-   trilinear gather (flat ``jnp.take``; the 64^3..256^3 volume lives in
-   VMEM-resident cache lines, gathers run at memory speed).
+   trilinear gather (flat ``jnp.take``).
 3. **Monotone masks as scans** — a convex box means the in-box predicate is
    a running AND; attenuation factors are <= 1 so transmittance is a cumprod
    and the ``transmit < 0.01`` break is "first crossing" — all expressible
@@ -46,8 +45,8 @@ __all__ = ["precompute_light_volume", "raymarch_fast"]
 def _flat_trilinear(vol_flat: jnp.ndarray, n: int, tex: jnp.ndarray) -> jnp.ndarray:
     """Trilinear sample of a flattened [n^3] volume at tex in [0,1]^3.
 
-    Linear-clamp semantics (texel centers at (i+0.5)/n). Uses flat
-    ``jnp.take`` — the fast gather path on TPU.
+    Linear-clamp semantics (texel centers at (i+0.5)/n), by flat
+    ``jnp.take``.
     """
     c = tex * n - 0.5
     c0 = jnp.floor(c)

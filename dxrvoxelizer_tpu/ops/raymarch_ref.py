@@ -118,9 +118,8 @@ def raymarch_ref(
 
     ``density``: [N,N,N] alpha grid (post R10G10B10A2 quantization);
     ``screen_to_local``: [4,4] row-vector matrix; ``clear_color``: [3].
-    ``y_offset`` (may be traced): first screen row — band renders (big
-    single-dispatch 720p+ graphs have crashed the remote TPU worker; chunk
-    rows on the host) and multi-chip shards use it. ``point_light``: the
+    ``y_offset`` (may be traced): first screen row — band renders and
+    multi-card shards use it. ``point_light``: the
     reference's _POINT_LIGHT_ compile branch — per-sample light direction
     ``normalize(lightPt - pos)`` instead of the fixed directional step
     (PSRayCast.hlsl:125-127 vs 151-154).
@@ -136,8 +135,8 @@ def raymarch_ref(
         [px, py, jnp.zeros_like(px), jnp.ones_like(px)], axis=-1
     )  # [H,W,4]
 
-    # row-vector transform; HIGHEST keeps the MXU at full f32 (the default
-    # bf16-pass precision visibly shifts ray origins on TPU)
+    # row-vector transform at full f32 precision (reduced-precision matmul
+    # passes, e.g. TF32 on GPUs, visibly shift ray origins)
     h = jnp.matmul(screen, screen_to_local, precision=jax.lax.Precision.HIGHEST)
     pos = h[..., :3] / h[..., 3:4]  # ScreenToLocal (PSRayCast.hlsl:61-66)
 

@@ -1,8 +1,8 @@
-"""Shear-warp volume renderer — the production TPU path.
+"""Shear-warp volume renderer — the production render path.
 
-Why: per-sample trilinear *gathers* run at ~1e8 taps/s on TPU (measured) —
-a 1080p x 128-step gather-based march costs tens of seconds. This renderer
-restructures the march so every memory access is **regular**:
+This renderer restructures the reference's per-pixel ray march so every
+volume access is **regular** (slab-wise dense matmuls instead of
+per-sample trilinear gathers):
 
 1. **Factorization.** Rays are parameterized by their intersection ``g`` with
    a fixed reference plane behind the volume (perpendicular to the view's
@@ -10,7 +10,7 @@ restructures the march so every memory access is **regular**:
    ``p_xy = e_xy + s_k * (g_xy - e_xy)``, ``s_k = (z_k - e_z)/(z_ref - e_z)``
    — for a fixed slab this is a pure per-axis scale+translate of the slab
    image, i.e. two small dense matmuls with 2-tap interpolation matrices
-   (ops/warp.py). 64-256 slabs cost a few hundred MFLOPs on the MXU.
+   (ops/warp.py).
 2. **Compositing** runs front-to-back over slabs on the intermediate grid
    with the shader's absorption rules (PSRayCast.hlsl:134-179): per-pixel
    step length ``delta = (2/N) * |w|/|w_z|``, attenuation
@@ -21,9 +21,9 @@ restructures the march so every memory access is **regular**:
    slab = one interpolation-matrix pair), replacing the reference's 32-step
    per-sample light march with an N-step per-voxel field.
 4. **Screen resolve**: each screen pixel bilinearly reads the composited
-   intermediate (scatter, transmit) at one point — a single coherent 2D
-   gather done by a Pallas kernel (ops/screen_warp_pallas.py) on TPU or
-   jnp.take on CPU.
+   intermediate (scatter, transmit) at one point (:func:`bilinear_take`).
+
+The march and the resolve are picked per platform by ops/route.py.
 
 Approximations vs the exact renderer (ops/raymarch_ref.py): sampling along
 the major axis at slab spacing instead of 128 uniform ray steps; light field
@@ -48,6 +48,7 @@ from dxrvoxelizer_tpu.ops.raymarch_ref import (
     TEX_SCALE,
     ZERO_THRESHOLD,
 )
+from dxrvoxelizer_tpu.ops import route
 from dxrvoxelizer_tpu.ops.warp import interp_matrix, scale_offset_coords, warp2d
 
 Z_REF = 1.25  # reference plane (tex space), just past the far slab
@@ -65,8 +66,8 @@ def _tex_params(consts_eye_local: np.ndarray, screen_to_local: np.ndarray,
     """Host-side static config: major axis, flip, and intermediate-axis swap.
 
     ``swap``: True when the first non-marching tex axis tracks screen-x more
-    than screen-y — the resolver's row-window coherence needs intermediate
-    *rows* to vary along screen-y (screen tiles are row-major 128-lane runs).
+    than screen-y; the intermediate is then transposed so its *rows* vary
+    along screen-y, like the screen's own rows.
     """
     def ray_dir(sx, sy):
         h = np.array([sx, sy, 0.0, 1.0], dtype=np.float32) @ screen_to_local
@@ -87,6 +88,11 @@ def _tex_params(consts_eye_local: np.ndarray, screen_to_local: np.ndarray,
 
 def _to_tex(p_norm: jnp.ndarray) -> jnp.ndarray:
     return jnp.asarray(TEX_SCALE) * p_norm + 0.5
+
+
+def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
+    """f32 matmul at full precision (GPUs default f32 dots to TF32)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 @partial(jax.jit, static_argnames=("n", "axis", "flip"))
@@ -123,7 +129,7 @@ def light_sweep(density: jnp.ndarray, light_local: jnp.ndarray,
 
     # blocked scan: CB sequential sub-steps unrolled per lax.scan step —
     # same expressions in the same order (bit-identical), 16x fewer
-    # scan-step dispatches (each costs ~us against a tiny [N, N] matmul)
+    # scan steps against a tiny [N, N] matmul each
     cb = 16
     while n % cb:
         cb //= 2
@@ -132,7 +138,7 @@ def light_sweep(density: jnp.ndarray, light_local: jnp.ndarray,
         outs = []
         for j in range(cb):
             # carry = L[k+1] * att[k+1] field; produce L[k]
-            l_k = wx @ carry @ wy.T + (1.0 - wsum)
+            l_k = _mm(_mm(wx, carry), wy.T) + (1.0 - wsum)
             outs.append(l_k)
             carry = l_k * att_b[j]
         return carry, jnp.stack(outs)
@@ -205,7 +211,7 @@ def light_sweep_point(density: jnp.ndarray, light_local: jnp.ndarray,
     def body(carry, xs):
         att_k, wx_k, wy_k = xs
         wsum = wx_k.sum(-1)[:, None] * wy_k.sum(-1)[None, :]
-        l_k = wx_k @ carry @ wy_k.T + (1.0 - wsum)
+        l_k = _mm(_mm(wx_k, carry), wy_k.T) + (1.0 - wsum)
         return l_k * att_k, l_k
 
     init = jnp.ones((n, n), dtype=jnp.float32)
@@ -354,13 +360,13 @@ def light_sweep_ref(density: jnp.ndarray, light_local: jnp.ndarray,
     att = jnp.clip(1.0 - ABSORPTION * ls * g, 0.0, 1.0)  # [K, X, Y]
     mask = in_xy[None] & in_z[:, None, None]  # [K, X, Y]
 
-    # BLOCKED far-to-near recurrence (round-5: the naive per-slab scan
-    # copied its [d0+1, N, N] sliding window every slab — ~1.9 GB of
-    # pure window movement at 256^3 — and issued 2N latency-bound
-    # [N, N] matmuls). Slab k reads only slabs k+d0 and k+d0+1, so a
-    # block of d0 CONSECUTIVE slabs has no intra-block dependence: scan
-    # over ceil(N/d0) blocks, each resampling its whole block with two
-    # batched einsums (MXU-shaped) and carrying the last d0+1 slabs.
+    # BLOCKED far-to-near recurrence (a naive per-slab scan copies its
+    # [d0+1, N, N] sliding window every slab — ~1.9 GB of pure window
+    # movement at 256^3 — and issues 2N latency-bound [N, N] matmuls).
+    # Slab k reads only slabs k+d0 and k+d0+1, so a block of d0
+    # CONSECUTIVE slabs has no intra-block dependence: scan over
+    # ceil(N/d0) blocks, each resampling its whole block with two batched
+    # einsums and carrying the last d0+1 slabs.
     # Per-slab arithmetic (mix weights, matmul contractions, select) is
     # the scalar recurrence's, op for op — pinned bit-exact against the
     # per-slab scan by tests/test_raymarch_warp.py.
@@ -386,8 +392,10 @@ def light_sweep_ref(density: jnp.ndarray, light_local: jnp.ndarray,
         # carry[j+1] (1-w)
         att_b, mask_b = xs  # [d0, n, n]
         lmix = carry[1:] * (1.0 - w) + carry[:-1] * w
-        lres = jnp.einsum("mn,jny->jmy", wx_l, lmix)
-        lres = jnp.einsum("jmy,py->jmp", lres, wy_l) + corr_l
+        lres = jnp.einsum("mn,jny->jmy", wx_l, lmix, precision="highest")
+        lres = jnp.einsum(
+            "jmy,py->jmp", lres, wy_l, precision="highest"
+        ) + corr_l
         l_b = jnp.where(mask_b, att_b * lres, 1.0)
         return jnp.concatenate([carry[-1:], l_b], axis=0), l_b
 
@@ -433,8 +441,7 @@ def light_sweep_host(density: jnp.ndarray, light_local: np.ndarray,
 @partial(
     jax.jit,
     static_argnames=(
-        "n", "m", "width", "height", "axis", "flip", "swap", "use_pallas",
-        "res_win", "ss",
+        "n", "m", "width", "height", "axis", "flip", "swap", "ss",
     ),
 )
 def _shearwarp_core(
@@ -450,8 +457,6 @@ def _shearwarp_core(
     axis: int,
     flip: bool,
     swap: bool,
-    use_pallas: bool,
-    res_win: int = 32,
     y_off: jnp.ndarray | None = None,
     ss: int = 1,
 ):
@@ -472,31 +477,15 @@ def _shearwarp_core(
     # trilinear, matching the reference's SampleLevel along the ray
     # (PSRayCast.hlsl:103-112) at 2x its 64-slab z-rate for ss=2.
     ks = n * ss
-    # the fused Pallas march (ops/march_pallas.py) streams the RAW slabs
-    # and z-mixes + warps + composites in VMEM — the XLA fallback below
-    # materializes each stage in HBM (kept for CPU and as the A/B).
-    # VMEM guard: per-step residents = the [2, N, N] slab window(s) (x2
-    # at ss > 1), wx/wy [M, N], delta + outputs + scratch [M, M] x5,
-    # double-buffered — a 1024^3 grid's 8 MB slab windows blow the
-    # ~16 MB budget, so grids that big keep the XLA path
-    vmem_est = (
-        2 * n * n * 4 * (2 if ss > 1 else 1) * 2  # slab windows, 2x buf
-        + 2 * m * n * 4 * 2                       # wx, wy, 2x buffered
-        + 5 * m * m * 4
-    )
-    use_march = use_pallas and vmem_est < 13 * 2**20
-    wts = jnp.zeros((ks,), jnp.float32)
     if ss > 1:
         pos = (jnp.arange(ks, dtype=jnp.float32) + 0.5) / ss - 0.5
         i0 = jnp.clip(jnp.floor(pos).astype(jnp.int32), 0, n - 1)
         i1 = jnp.clip(i0 + 1, 0, n - 1)
         w1 = jnp.clip(pos - i0.astype(jnp.float32), 0.0, 1.0)
-        wts = w1
-        if not use_march:
-            slabs = (
-                slabs[:, i0] * (1.0 - w1)[None, :, None, None]
-                + slabs[:, i1] * w1[None, :, None, None]
-            )  # [2, KS, X, Y]
+        slabs = (
+            slabs[:, i0] * (1.0 - w1)[None, :, None, None]
+            + slabs[:, i1] * w1[None, :, None, None]
+        )  # [2, KS, X, Y]
 
     e_t_full = _to_tex(eye_local)[jnp.asarray(perm)]
     if flip:
@@ -531,9 +520,8 @@ def _shearwarp_core(
     wx = interp_matrix(scale_offset_coords(m, scale_x, off_x), n)  # [K, M, N]
     wy = interp_matrix(scale_offset_coords(m, scale_y, off_y), n)
 
-    if not use_march:
-        dens_w = warp2d(slabs[0], wx, wy)  # [K, M, M]
-        light_w = warp2d(slabs[1], wx, wy)
+    dens_w = warp2d(slabs[0], wx, wy)  # [K, M, M]
+    light_w = warp2d(slabs[1], wx, wy)
 
     # per-intermediate-pixel step length (normalized-space units)
     gi = (jnp.arange(m, dtype=jnp.float32) + 0.5) / m
@@ -546,67 +534,14 @@ def _shearwarp_core(
     delta = (2.0 / ks) * jnp.sqrt(w_x**2 + w_y**2 + c_ref**2) / jnp.abs(c_ref)
 
     front = (s_k > S_MIN).astype(jnp.float32)  # near-clip mask per slab
-
-    def step(transmit, scatter, d_k, l_k, f_k):
-        g_s = jnp.minimum(d_k * 8.0, 16.0)
-        occupied = (g_s > ZERO_THRESHOLD) & (f_k > 0)
-        sigma = g_s * delta
-        att = jnp.where(occupied, jnp.clip(1.0 - sigma * ABSORPTION, 0.0, 1.0), 1.0)
-        new_transmit = transmit * att
-        contributes = occupied & (new_transmit >= ZERO_THRESHOLD)
-        scatter = scatter + jnp.where(
-            contributes, l_k * new_transmit * sigma, 0.0
-        )
-        # shader break: once transmit dies it stays at the dying value
-        transmit = jnp.where(
-            transmit >= ZERO_THRESHOLD, new_transmit, transmit
-        )
-        return transmit, scatter
-
-    # BLOCKED compositing scan: ~CB sequential sub-steps unrolled per
-    # lax.scan step. Each scan step costs ~us of dispatch bookkeeping
-    # regardless of its work; at ss=2 x 256^3 the 512 tiny [M, M]
-    # elementwise steps were ~1/3 of the whole render. The sub-steps run
-    # in the same order with the same expressions, so the composite is
-    # BIT-IDENTICAL to the per-slab scan (goldens unchanged).
-    cb = 16
-    while ks % cb:
-        cb //= 2
-
-    def body(carry, xs):
-        transmit, scatter = carry
-        d_b, l_b, f_b = xs
-        for j in range(cb):
-            transmit, scatter = step(
-                transmit, scatter, d_b[j], l_b[j], f_b[j]
-            )
-        return (transmit, scatter), None
-
-    if use_march:
-        from dxrvoxelizer_tpu.ops.march_pallas import march_pallas
-
-        transmit_i, scatter_i = march_pallas(
-            slabs, wts, front, wx, wy, delta, ss
-        )
-    else:
-        init = (jnp.ones((m, m), jnp.float32),
-                jnp.zeros((m, m), jnp.float32))
-        (transmit_i, scatter_i), _ = jax.lax.scan(
-            body, init,
-            (
-                dens_w.reshape(ks // cb, cb, m, m),
-                light_w.reshape(ks // cb, cb, m, m),
-                front.reshape(ks // cb, cb, 1, 1),
-            ),
-        )
+    transmit_i, scatter_i = route.march()(dens_w, light_w, front, delta)
 
     # ---- screen resolve ----------------------------------------------------
     # y_off: first screen row of this band (traced; multi-chip row sharding)
-    # Planar [P] layout throughout: a [P,3] array occupies 3 of 128 VPU
-    # lanes, so every AoS op on it ran at ~1/40 throughput — the per-pixel
-    # pipeline in this form was 4.2 ms of the 4.35 ms frame. Expressions
-    # stay identical per component (the screen point is (px, py, 0, 1), so
-    # the matmul row-combination is a pure elementwise affine, f32 exact).
+    # Planar [P] layout throughout: one array per component instead of a
+    # [P,3] AoS array. Expressions stay identical per component (the screen
+    # point is (px, py, 0, 1), so the matmul row-combination is a pure
+    # elementwise affine, f32 exact).
     sx = jnp.arange(width, dtype=jnp.float32) + 0.5
     sy = jnp.arange(height, dtype=jnp.float32) + 0.5
     if y_off is not None:
@@ -661,37 +596,14 @@ def _shearwarp_core(
     gi_y = (g_py - gmin[1]) / gext[1] * m - 0.5
 
     if swap:
-        # resolver coherence: rows should track screen-y
+        # intermediate rows track screen-y
         scatter_i = scatter_i.T
         transmit_i = transmit_i.T
         gi_x, gi_y = gi_y, gi_x
     ok = is_hit & valid
-    if use_pallas:
-        from dxrvoxelizer_tpu.ops.screen_warp_pallas import (
-            M_BUCKETS,
-            bilinear_resolve,
-        )
-
-        # edge-pad the intermediates up to the resolver's native size (the
-        # render resolution m may be smaller to keep magnification ~1)
-        m_pad = next(b for b in M_BUCKETS if b >= m)
-        if m < m_pad:
-            pads = ((0, m_pad - m), (0, m_pad - m))
-            scatter_i = jnp.pad(scatter_i, pads, mode="edge")
-            transmit_i = jnp.pad(transmit_i, pads, mode="edge")
-        # tile pixels as 32x32 screen blocks: bounded 2D extent per tile is
-        # what keeps the resolver's row window coherent
-        bx, by = _to_blocks(gi_x, width, height), _to_blocks(gi_y, width, height)
-        bm = _to_blocks(ok.astype(jnp.float32), width, height)
-        sc_b, tr_b = bilinear_resolve(
-            scatter_i, transmit_i, bx, by, mask=bm.astype(jnp.int32),
-            win=res_win,
-        )
-        sc = _from_blocks(sc_b, width, height)
-        tr = _from_blocks(tr_b, width, height)
-    else:
-        sc = _bilinear_take(scatter_i, gi_x, gi_y, m)
-        tr = _bilinear_take(transmit_i, gi_x, gi_y, m)
+    resolve = route.resolve()
+    sc = resolve(scatter_i, gi_x, gi_y, m)
+    tr = resolve(transmit_i, gi_x, gi_y, m)
     # composite per channel in planar form; the single [P,3] stack at the
     # end is the only AoS materialization
     base = sc * 0.8 + 0.2
@@ -706,28 +618,62 @@ def _shearwarp_core(
     return out.reshape(height, width, 3).astype(jnp.float32)
 
 
-def _to_blocks(flat: jnp.ndarray, width: int, height: int) -> jnp.ndarray:
-    """[H*W] row-major pixels -> 32x32-block-major flat layout (edge-padded)."""
-    x = flat.reshape(height, width)
-    ph = (-height) % 32
-    pw = (-width) % 32
-    x = jnp.pad(x, ((0, ph), (0, pw)), mode="edge")
-    hb, wb = (height + ph) // 32, (width + pw) // 32
-    return x.reshape(hb, 32, wb, 32).transpose(0, 2, 1, 3).reshape(-1)
+def march_xla(dens_w, light_w, front, delta):
+    """Front-to-back compositing over the warped slabs -> (transmit,
+    scatter) [M, M] with the shader's absorption rules
+    (PSRayCast.hlsl:134-179). ``dens_w``/``light_w`` [KS, M, M] warped
+    density and light slabs, ``front`` [KS] near-clip mask, ``delta``
+    [M, M] per-pixel step length."""
+    ks, m = dens_w.shape[0], dens_w.shape[1]
 
+    def step(transmit, scatter, d_k, l_k, f_k):
+        g_s = jnp.minimum(d_k * 8.0, 16.0)
+        occupied = (g_s > ZERO_THRESHOLD) & (f_k > 0)
+        sigma = g_s * delta
+        att = jnp.where(
+            occupied, jnp.clip(1.0 - sigma * ABSORPTION, 0.0, 1.0), 1.0
+        )
+        new_transmit = transmit * att
+        contributes = occupied & (new_transmit >= ZERO_THRESHOLD)
+        scatter = scatter + jnp.where(
+            contributes, l_k * new_transmit * sigma, 0.0
+        )
+        # shader break: once transmit dies it stays at the dying value
+        transmit = jnp.where(
+            transmit >= ZERO_THRESHOLD, new_transmit, transmit
+        )
+        return transmit, scatter
 
-def _from_blocks(flat: jnp.ndarray, width: int, height: int) -> jnp.ndarray:
-    ph = (-height) % 32
-    pw = (-width) % 32
-    hb, wb = (height + ph) // 32, (width + pw) // 32
-    x = flat.reshape(hb, wb, 32, 32).transpose(0, 2, 1, 3).reshape(
-        height + ph, width + pw
+    # BLOCKED compositing scan: CB sequential sub-steps unrolled per
+    # lax.scan step, same order and expressions as the per-slab scan (so
+    # the composite is bit-identical) with CB-fold fewer scan steps
+    cb = 16
+    while ks % cb:
+        cb //= 2
+
+    def body(carry, xs):
+        transmit, scatter = carry
+        d_b, l_b, f_b = xs
+        for j in range(cb):
+            transmit, scatter = step(
+                transmit, scatter, d_b[j], l_b[j], f_b[j]
+            )
+        return (transmit, scatter), None
+
+    init = (jnp.ones((m, m), jnp.float32), jnp.zeros((m, m), jnp.float32))
+    (transmit, scatter), _ = jax.lax.scan(
+        body, init,
+        (
+            dens_w.reshape(ks // cb, cb, m, m),
+            light_w.reshape(ks // cb, cb, m, m),
+            front.reshape(ks // cb, cb, 1, 1),
+        ),
     )
-    return x[:height, :width].reshape(-1)
+    return transmit, scatter
 
 
-def _bilinear_take(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray, m: int):
-    """XLA fallback bilinear sample of img[x, y] (clamped)."""
+def bilinear_take(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray, m: int):
+    """Bilinear sample of the [m, m] ``img`` at (x, y), edge-clamped."""
     x0 = jnp.clip(jnp.floor(x).astype(jnp.int32), 0, m - 1)
     y0 = jnp.clip(jnp.floor(y).astype(jnp.int32), 0, m - 1)
     x1 = jnp.clip(x0 + 1, 0, m - 1)
@@ -770,8 +716,8 @@ def shearwarp_statics(
     height: int,
     m_cap: int = 128,
     m: int | None = None,
-) -> tuple[int, bool, bool, int, int]:
-    """Host-side camera statics ``(axis, flip, swap, m, res_win)``.
+) -> tuple[int, bool, bool, int]:
+    """Host-side camera statics ``(axis, flip, swap, m)``.
 
     These are the compile-time parameters of :func:`_shearwarp_core`; a
     camera crossing a major-axis boundary (or a volume whose screen
@@ -781,20 +727,14 @@ def shearwarp_statics(
     """
     s2l_np = np.asarray(screen_to_local)
     eye_np = np.asarray(eye_local)
-    box_px = _box_screen_px(s2l_np, width, height)
     if m is None:
         # track the volume's screen footprint (magnification ~1) up to
-        # ``m_cap``; the resolver supports intermediates to 512^2 (larger
-        # caps sharpen hi-res renders at ~linear resolver cost)
+        # ``m_cap`` and at most 512^2 (larger caps sharpen hi-res renders
+        # at ~linear march and resolve cost)
+        box_px = _box_screen_px(s2l_np, width, height)
         m = int(np.clip(16 * round(0.9 * box_px / 16), 32, min(m_cap, 512)))
     axis, flip, swap = _tex_params(eye_np, s2l_np, width, height)
-    # a 32x32-pixel tile's source rows span about 32 * 1.2 * m / box_px
-    # intermediate rows (+2 guard +7 window-alignment slack); pick the
-    # smallest resolver window that covers it (48 handles magnification < 1,
-    # i.e. a volume tiny on screen)
-    span = 32 * 1.2 * m / box_px + 9.0
-    res_win = 16 if span <= 16.0 else (32 if span <= 32.0 else min(48, m))
-    return axis, flip, swap, m, res_win
+    return axis, flip, swap, m
 
 
 def raymarch_shearwarp(
@@ -806,26 +746,22 @@ def raymarch_shearwarp(
     width: int,
     height: int,
     m: int | None = None,
-    use_pallas: bool | None = None,
     m_cap: int = 128,
     ss: int = 1,
 ) -> jnp.ndarray:
     """Render via the shear-warp path. Host wrapper: picks the static axis/
     flip/orientation and the intermediate resolution, then calls the jitted
     core. Intermediate resolution tracks the volume's screen footprint
-    (magnification ~1) so the Pallas resolver's coherence window holds.
-    ``ss``: z-supersampling factor (the ``-hq`` high-fidelity mode)."""
+    (magnification ~1). ``ss``: z-supersampling factor (the ``-hq``
+    high-fidelity mode)."""
     n = density.shape[0]
     s2l_np = np.asarray(screen_to_local)
     eye_np = np.asarray(eye_local)
-    axis, flip, swap, m, res_win = shearwarp_statics(
+    axis, flip, swap, m = shearwarp_statics(
         s2l_np, eye_np, width, height, m_cap=m_cap, m=m
     )
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
     return _shearwarp_core(
         density, light_vol, jnp.asarray(s2l_np), jnp.asarray(eye_np),
         jnp.asarray(np.asarray(clear_color, np.float32)),
-        n, m, width, height, axis, flip, swap, use_pallas, res_win=res_win,
-        ss=ss,
+        n, m, width, height, axis, flip, swap, ss=ss,
     )

@@ -1,27 +1,28 @@
-"""Pallas closest-hit kernel for the binned ray-stab query.
+"""Closest-hit fold + winner extraction for the binned ray-stab query.
 
-The XLA query (ops/raystab_fast.py) is gather-bound: every cell block
-re-gathers ray origins/directions and triangle soups. Here both are
-**pre-gathered into dense per-cell tables once at accel-build time** (the
-ray->cell grouping is static per grid size, the candidates static per mesh),
-so the per-frame query streams with zero gathers:
+A Pallas kernel on the Triton route. The accel (ops/raystab_fast.py,
+ops/raystab_tiled.py) packs each capacity class into 128-ray strips: a
+ray block [C, 8, 128] (rows dx dy dz s0 + padding rows) and the strip's
+candidate tables — radial coefficients ``coefs`` (g0 g1 g2 c id pad) and
+vertex normals ``ntab`` (n0 n1 n2 pad) — in either of two layouts: classic
+[C, K, 12] or lane-aligned [C, 12, K] (classes with K >= LANE_MIN_K). The
+kernel reads both by stride.
 
-- grid step = 8 direction cells x one candidate chunk; per cell, rays live
-  on the 128 lanes and candidates stream 8-at-a-time on the sublane axis
-  (one [8,128] Moller-Trumbore block per sub-step, the same scalarized
-  expression order as ops/intersect.py mt_hit, so results are bit-identical
-  to the oracle);
-- the global triangle id rides in the coefficient table as a float row
-  (exact for ids < 2^24), so the winner fold is a pure [8,128] lexicographic
-  (closest t, then lowest id) min — order-independent, matching the
-  oracle's scan-order rule — with no integer relayouts;
-- candidate chunks revisit their output block across the minor grid axis,
-  bounding VMEM for large capacity classes;
-- a shared-candidate variant (``shared=True``) runs the brute-force pass
-  over the overflow triangles: the grid walks 128-ray strips and every step
-  streams the same candidate block.
+One program per strip, one ray per thread (4 warps = 128 lanes):
 
-Outputs (t, global id) per ray feed ops/raystab_fast.py's finalize stage.
+- walk the strip's K candidates, reading each candidate's row once;
+- keep the (t, id) lexicographic minimum and the winner's table position
+  in registers — exact and order-independent, matching the oracle's
+  strictly-closer / lowest-id rule;
+- skip a 256-candidate chunk when its distance lower bound (``bounds``,
+  candidates are distance-sorted at build) cannot beat any lane's current
+  winner — the DXR near-to-far traversal analog;
+- load the winner's coefficient and normal rows by index and finish the
+  rgba channels in the strip (inside rule, normalized interpolated normal).
+
+Every arithmetic chain is the radial oracle's scalarized expression order
+(ops/intersect.py ``radial_hit``, ops/voxelize_ref.py
+``voxelize_raystab_radial_ref``), so winners and normals are bit-identical.
 """
 
 from __future__ import annotations
@@ -31,53 +32,39 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from dxrvoxelizer_tpu.ops.intersect import EPS_DET, T_MAX, radial_hit
+from dxrvoxelizer_tpu.ops.intersect import radial_hit
 
-CELLS_PER_STEP = 8
+CELLS_PER_STEP = 8  # strip counts are padded to multiples of this
 
 LANE_MIN_K = 96
-"""Capacity classes with K >= this store their tables TRANSPOSED
-([..., 12, K], lane-aligned) and run stab_fold_extract3 (the gen-6
-kernel); smaller classes keep the classic [..., K, 12] layout and run
-stab_fold_extract2 (gen-4). See the layout-history comment above
-_fold_extract_kernel6 and the rationale note in ops/raystab_fast.py.
-cells_per_step_for's VMEM budget depends on this split, which is why the
-threshold lives here beside the kernels."""
+"""Capacity classes with K >= this store their tables lane-aligned
+([..., 12, K], candidate-contiguous rows); smaller classes keep the classic
+[..., K, 12] layout. The kernel reads both."""
+
+K_BLOCK = 256  # candidates per distance-bound chunk
+BIG_ID = 2**30  # exactly representable in f32
+NCF2 = 12  # coefficient row: g0(3) g1(3) g2(3) c(1) id-as-f32(1) pad(1)
+C_ROW = 9
+ID_ROW2 = 10
+NNC = 12  # normal-table row: n0(3) n1(3) n2(3) pad(3)
 
 
 def cells_per_step_for(k: int, c: int | None = None,
                        vc: int | None = None) -> int:
-    """Strips per grid step for the fused fold+extract kernels.
+    """Strip-count granule a class of candidate capacity ``k`` is padded to
+    at build (part of the packed-table layout, so of the accel cache key).
 
-    Each grid step costs ~1 us of dispatch/DMA bookkeeping regardless of
-    its work; at CELLS_PER_STEP=8 a 128^3 query's 24k strips were ~3k
-    steps = ~3 ms of pure step overhead on 16-candidate classes whose
-    per-step compute is tiny. Small-K classes therefore batch MORE
-    strips per step (VMEM-bounded: the classic [cps, kblk, 12] block
-    pads its 12-lane minor to 128, so cps*kblk*128*4 B must stay well
-    under VMEM with double buffering). ``c`` (the strip count, always a
-    multiple of 8) reduces the target to a divisor so sharded or legacy
-    paddings keep working; build-side vc padding targets the full value
-    (raystab_fast._pack_classes2).
+    Small-K classes pad to larger granules, bounded by ``vc`` (the class's
+    real strip count: padding stays <= ~vc/4) and, when given, reduced to a
+    divisor of ``c`` (an already-padded strip count).
     """
     kblk = min(k, K_BLOCK)
-    # The kernel body unrolls over the cps strips, and Mosaic's scoped
-    # VMEM charges each unrolled strip's live extraction temporaries
-    # (~kblk * 4 KB of one-hot/matmul intermediates measured from the
-    # compiler's OOM reports: cps=64 x kblk=64 -> 18 MB, cps=32 x
-    # kblk=256 -> 22.6 MB against the 16 MB limit) PLUS the operand
-    # blocks (classic tables pad 12 lanes -> 128). cps * kblk <= 2048
-    # keeps both comfortably inside the limit at every class size.
     cps = 64
     while cps > 8 and cps * kblk > 2048:
         cps //= 2
     if vc is not None:
-        # bound the row padding: padding a vc-row class to a cps
-        # multiple adds up to cps-1 inert strips of kernel work, so keep
-        # cps <= ~vc/4 (the native packer applies the same rule —
-        # accelpack_classes_begin)
         while cps > 8 and cps * 4 > vc:
             cps //= 2
     if c is not None:
@@ -87,656 +74,113 @@ def cells_per_step_for(k: int, c: int | None = None,
     return cps
 
 
-K_BLOCK = 256  # candidate chunk per grid step (VMEM bound)
-BIG_ID = 2**30  # exactly representable in f32
-NCF = 12  # v0(3) e1(3) e2(3) id(1) pad(2)
-ID_ROW = 9
-
-
-def _lexmin(t1, i1, t2, i2):
+def _lexmin(t1, i1, k1, t2, i2, k2):
     take = (t2 < t1) | ((t2 == t1) & (i2 < i1))
-    return jnp.where(take, t2, t1), jnp.where(take, i2, i1)
+    return (jnp.where(take, t2, t1), jnp.where(take, i2, i1),
+            jnp.where(take, k2, k1))
 
 
-def _stab_kernel(ray_ref, coef_ref, t_ref, i_ref, *, kblk: int, shared: bool):
-    """One grid step: 8 cells' rays vs one chunk of their candidates.
+def finish_channels(dx, dy, dz, gr, nr, wt, wi, t_count: int,
+                    threshold: float, rule: str):
+    """Winner rows -> finished (nx, ny, nz, a) channels.
 
-    ray_ref: [8, 8, 128] f32 — per cell, rows (ox,oy,oz,dx,dy,dz,valid,pad)
-    coef_ref: [8, kblk, 12] (or [kblk, 12] when shared) — v0,e1,e2,id,pad
-    t_ref/i_ref: [8, 128] f32 — closest t (+inf miss) and its id (as float),
-        accumulated across the candidate-chunk grid axis
-    """
-    kc = pl.program_id(1)
+    ``gr``/``nr``: the winner's 9 coefficient (g0 g1 g2) and 9 normal
+    (n0 n1 n2) values; ``wt``/``wi``: its t and id (as f32). Shared
+    verbatim by the kernel and the plain fold (ops/raystab_fast.py
+    ``fold_extract_xla``) — the radial oracle's normal convention:
+    w_i = d . g_i, den = (w0 + w1) + w2, ns = w0*n0 + w1*n1 + w2*n2,
+    nrm = (ns / den) / max(sqrt(ss), 1e-20)."""
+    w0 = dx * gr[0] + dy * gr[1] + dz * gr[2]
+    w1 = dx * gr[3] + dy * gr[4] + dz * gr[5]
+    w2 = dx * gr[6] + dy * gr[7] + dz * gr[8]
+    den = (w0 + w1) + w2
+    nsx = w0 * nr[0] + w1 * nr[3] + w2 * nr[6]
+    nsy = w0 * nr[1] + w1 * nr[4] + w2 * nr[7]
+    nsz = w0 * nr[2] + w1 * nr[5] + w2 * nr[8]
+    dn = jnp.where(den == 0.0, 1.0, den)
+    nx, ny, nz = nsx / dn, nsy / dn, nsz / dn
+    ss = (nx * nx + ny * ny) + nz * nz
+    ln = jnp.maximum(jnp.sqrt(ss), 1e-20)
+    nx, ny, nz = nx / ln, ny / ln, nz / ln
+    hit = jnp.isfinite(wt) & (wi < float(t_count))
+    if rule == "hit":
+        inside = hit
+    else:
+        dot = (nx * dx + ny * dy) + nz * dz
+        inside = hit & (dot > threshold)
+    zero = jnp.zeros_like(nx)
+    return (jnp.where(inside, nx, zero), jnp.where(inside, ny, zero),
+            jnp.where(inside, nz, zero), jnp.where(inside, 1.0, zero))
 
-    @pl.when(kc == 0)
-    def _():
-        t_ref[...] = jnp.full_like(t_ref, jnp.inf)
-        i_ref[...] = jnp.full_like(i_ref, float(BIG_ID))
 
-    for ci in range(CELLS_PER_STEP):
-        ox = ray_ref[ci, 0:1, :]
-        oy = ray_ref[ci, 1:2, :]
-        oz = ray_ref[ci, 2:3, :]
-        dx = ray_ref[ci, 3:4, :]
-        dy = ray_ref[ci, 4:5, :]
-        dz = ray_ref[ci, 5:6, :]
+def _fold_extract_kernel(*refs, k: int, kblk: int, shared: bool,
+                         lane_aligned: bool, skip: bool, t_count: int,
+                         threshold: float, rule: str):
+    if skip:
+        ray_ref, coef_ref, ntab_ref, bnd_ref, t_ref, i_ref, ns_ref = refs
+    else:
+        ray_ref, coef_ref, ntab_ref, t_ref, i_ref, ns_ref = refs
+    s = pl.program_id(0)
 
-        def step(g, carry, ci=ci, ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz):
-            bt, bi = carry
-            if shared:
-                cf = coef_ref[pl.ds(g * 8, 8), :]  # [8, 12]
-            else:
-                cf = coef_ref[ci, pl.ds(g * 8, 8), :]
+    def row(ref, pos, j):
+        """Candidate ``pos`` (scalar or per-lane index), column ``j``."""
+        if shared:
+            return ref[j, pos] if lane_aligned else ref[pos, j]
+        return ref[s, j, pos] if lane_aligned else ref[s, pos, j]
 
-            def col(j):
-                return cf[:, j : j + 1]  # [8,1]
+    dx = ray_ref[s, 0, :]
+    dy = ray_ref[s, 1, :]
+    dz = ray_ref[s, 2, :]
+    s0 = ray_ref[s, 3, :]
+    # padding ray slots (all-zero directions) start at -inf: they never
+    # block a chunk skip and are sliced off by the caller's merge
+    pad = (dx == 0.0) & (dy == 0.0) & (dz == 0.0)
 
-            v0x, v0y, v0z = col(0), col(1), col(2)
-            e1x, e1y, e1z = col(3), col(4), col(5)
-            e2x, e2y, e2z = col(6), col(7), col(8)
-            ids = col(ID_ROW)  # [8,1] f32
+    def step(j, carry):
+        def c(col):
+            return row(coef_ref, j, col)
 
-            # scalarized mt_hit expression order (ops/intersect.py)
-            px = dy * e2z - dz * e2y  # [8,128]
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            inv = jnp.where(jnp.abs(det) > EPS_DET, 1.0 / det, 0.0)
-            tvx = ox - v0x
-            tvy = oy - v0y
-            tvz = oz - v0z
-            u = (tvx * px + tvy * py + tvz * pz) * inv
-            qx = tvy * e1z - tvz * e1y
-            qy = tvz * e1x - tvx * e1z
-            qz = tvx * e1y - tvy * e1x
-            v = (dx * qx + dy * qy + dz * qz) * inv
-            t = (e2x * qx + e2y * qy + e2z * qz) * inv
-            hit = (
-                (jnp.abs(det) > EPS_DET)
-                & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (t >= 0.0) & (t <= T_MAX)
+        tt, hit = radial_hit(
+            dx, dy, dz, s0,
+            c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), c(8), c(C_ROW),
+        )
+        ii = jnp.where(hit, c(ID_ROW2), float(BIG_ID))
+        return _lexmin(*carry, tt, ii, jnp.full_like(carry[2], j))
+
+    carry = (
+        jnp.where(pad, -jnp.inf, jnp.inf),
+        jnp.full((128,), float(BIG_ID), jnp.float32),
+        jnp.zeros((128,), jnp.int32),
+    )
+    for kc in range(k // kblk):
+        def fold(cr, kc=kc):
+            return jax.lax.fori_loop(kc * kblk, (kc + 1) * kblk, step, cr)
+
+        if skip:
+            carry = jax.lax.cond(
+                bnd_ref[s, kc] <= jnp.max(carry[0]), fold, lambda cr: cr,
+                carry,
             )
-            tt = jnp.where(hit, t, jnp.inf)
-            ii = jnp.where(hit, ids, float(BIG_ID))  # [8,1] -> broadcast
-
-            t4, i4 = _lexmin(tt[0:4], ii[0:4], tt[4:8], ii[4:8])
-            t2, i2 = _lexmin(t4[0:2], i4[0:2], t4[2:4], i4[2:4])
-            t1, i1 = _lexmin(t2[0:1], i2[0:1], t2[1:2], i2[1:2])
-            return _lexmin(bt, bi, t1, i1)
-
-        init = (t_ref[ci : ci + 1, :], i_ref[ci : ci + 1, :])
-        bt, bi = jax.lax.fori_loop(0, kblk // 8, step, init, unroll=True)
-        t_ref[ci : ci + 1, :] = bt
-        i_ref[ci : ci + 1, :] = bi
-
-
-# ---- gen-2: radial-form kernel -------------------------------------------
-#
-# Row layouts (see ops/raystab_fast.build_raystab_accel2):
-#   ray block  [8, 128]: dx dy dz s0 (4 rows) + 4 pad rows; padding ray
-#       slots are all-zero -> den == 0 -> guaranteed miss;
-#   coef block [K, 12]:  g0(3) g1(3) g2(3) c(1) id-as-f32(1) pad(1); padding
-#       candidate rows are all-zero with id BIG -> den == 0 -> miss.
-NCF2 = 12
-C_ROW = 9
-ID_ROW2 = 10
-
-
-def _stab_kernel2(*refs, kblk: int, shared: bool, skip: bool):
-    """One grid step, radial form: 8 cells' rays vs one candidate chunk.
-
-    Same streaming structure as :func:`_stab_kernel`, but the per-pair test
-    is intersect.radial_hit (~35 VPU ops vs ~60 for Moller-Trumbore) — the
-    rays all run through the grid origin, so three direction-linear signed
-    volumes decide the hit and the plane constant gives t (SURVEY.md §3.3's
-    generateRay makes every voxelize ray radial by construction).
-
-    ``skip``: candidates are distance-sorted at accel build and a per-cell
-    per-chunk lower bound rides along (``bnd_ref``); once every lane's best
-    t beats a chunk's bound, the remaining chunks cannot produce a closer
-    hit (nor a tie — the bound is strict) and their fold is branched over —
-    the DXR near-to-far BVH traversal analog at chunk granularity.
-    """
-    if skip:
-        ray_ref, coef_ref, bnd_ref, t_ref, i_ref = refs
-    else:
-        ray_ref, coef_ref, t_ref, i_ref = refs
-        bnd_ref = None
-    kc = pl.program_id(1)
-
-    @pl.when(kc == 0)
-    def _():
-        # Padding ray slots (all-zero direction rows — a normalized real
-        # direction is never all-zero) start at -inf, not +inf: the chunk
-        # skip compares the chunk bound against max(t) over the strip's
-        # lanes, and a +inf padding lane would block skipping forever.
-        # Downstream is unaffected — padding slots sort to key V and are
-        # sliced off (raystab_fast._merge_winners2).
-        pad = (
-            (ray_ref[:, 0, :] == 0.0)
-            & (ray_ref[:, 1, :] == 0.0)
-            & (ray_ref[:, 2, :] == 0.0)
-        )
-        t_ref[...] = jnp.where(pad, -jnp.inf, jnp.inf)
-        i_ref[...] = jnp.full_like(i_ref, float(BIG_ID))
-
-    for ci in range(CELLS_PER_STEP):
-        dx = ray_ref[ci, 0:1, :]
-        dy = ray_ref[ci, 1:2, :]
-        dz = ray_ref[ci, 2:3, :]
-        s0 = ray_ref[ci, 3:4, :]
-
-        def fold(ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-            def step(g, carry, ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-                bt, bi = carry
-                if shared:
-                    cf = coef_ref[pl.ds(g * 8, 8), :]  # [8, 12]
-                else:
-                    cf = coef_ref[ci, pl.ds(g * 8, 8), :]
-
-                def col(j):
-                    return cf[:, j : j + 1]  # [8,1]
-
-                tt, hit = radial_hit(
-                    dx, dy, dz, s0,
-                    col(0), col(1), col(2),
-                    col(3), col(4), col(5),
-                    col(6), col(7), col(8),
-                    col(C_ROW),
-                )  # [8,128]
-                ii = jnp.where(hit, col(ID_ROW2), float(BIG_ID))
-
-                t4, i4 = _lexmin(tt[0:4], ii[0:4], tt[4:8], ii[4:8])
-                t2, i2 = _lexmin(t4[0:2], i4[0:2], t4[2:4], i4[2:4])
-                t1, i1 = _lexmin(t2[0:1], i2[0:1], t2[1:2], i2[1:2])
-                return _lexmin(bt, bi, t1, i1)
-
-            init = (t_ref[ci : ci + 1, :], i_ref[ci : ci + 1, :])
-            bt, bi = jax.lax.fori_loop(0, kblk // 8, step, init, unroll=True)
-            t_ref[ci : ci + 1, :] = bt
-            i_ref[ci : ci + 1, :] = bi
-
-        if skip:
-            worst = jnp.max(t_ref[ci, :])
-            pl.when(bnd_ref[ci, kc] <= worst)(fold)
         else:
-            fold()
+            carry = fold(carry)
+    bt, bi, bk = carry
 
-
-@partial(jax.jit, static_argnames=("k", "shared", "interpret"))
-def stab_closest_hit2(
-    rays: jnp.ndarray,  # [C, 8, 128] f32 (dx dy dz s0 rows)
-    coefs: jnp.ndarray,  # [C, K, 12] f32 (or [K, 12] when shared)
-    k: int,
-    shared: bool = False,
-    interpret: bool = False,
-    bounds: jnp.ndarray | None = None,  # [C, K//K_BLOCK] chunk lower bounds
-):
-    """Radial-form closest hit per ray slot -> (t [C,128], id [C,128] i32).
-
-    ``bounds`` (multi-chunk classes only): per-(cell, chunk) strict lower
-    bound on any hit t from that chunk — lets the kernel branch over chunks
-    that cannot beat the current winners (candidates distance-sorted at
-    build; ops/raystab_fast._pack_classes2).
-    """
-    c = rays.shape[0]
-    assert c % CELLS_PER_STEP == 0 and k % 8 == 0
-    steps = c // CELLS_PER_STEP
-    kblk = min(k, K_BLOCK)
-    # k > K_BLOCK must chunk evenly or the tail candidates are silently
-    # never tested (class caps above K_BLOCK must be multiples of it)
-    assert k % kblk == 0, f"k={k} not a multiple of K_BLOCK={K_BLOCK}"
-    k_steps = k // kblk
-    skip = bounds is not None and k_steps > 1 and not shared
-    if shared:
-        coef_spec = pl.BlockSpec(
-            (kblk, NCF2), lambda i, kc: (kc, 0), memory_space=pltpu.VMEM
-        )
-    else:
-        coef_spec = pl.BlockSpec(
-            (CELLS_PER_STEP, kblk, NCF2), lambda i, kc: (i, kc, 0),
-            memory_space=pltpu.VMEM,
-        )
-    in_specs = [
-        pl.BlockSpec(
-            (CELLS_PER_STEP, 8, 128), lambda i, kc: (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        coef_spec,
-    ]
-    args = [rays, coefs]
-    if skip:
-        # SMEM: scalar memory supports the dynamic [cell, chunk] read the
-        # kernel does (VMEM lane-indexed scalar loads don't lower)
-        in_specs.append(pl.BlockSpec(
-            (CELLS_PER_STEP, k_steps), lambda i, kc: (i, 0),
-            memory_space=pltpu.SMEM,
-        ))
-        args.append(bounds)
-    t_out, i_out = pl.pallas_call(
-        partial(_stab_kernel2, kblk=kblk, shared=shared, skip=skip),
-        grid=(steps, k_steps),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec(
-                (CELLS_PER_STEP, 128), lambda i, kc: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (CELLS_PER_STEP, 128), lambda i, kc: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-        ],
-        interpret=interpret,
-    )(*args)
-    return t_out, i_out.astype(jnp.int32)
-
-
-@partial(jax.jit, static_argnames=("k", "shared", "interpret"))
-def stab_closest_hit(
-    rays: jnp.ndarray,  # [C, 8, 128] f32
-    coefs: jnp.ndarray,  # [C, K, 12] f32 (or [K, 12] when shared)
-    k: int,
-    shared: bool = False,
-    interpret: bool = False,
-):
-    """Closest hit per ray slot -> (t [C,128] f32, id [C,128] i32)."""
-    c = rays.shape[0]
-    assert c % CELLS_PER_STEP == 0 and k % 8 == 0
-    steps = c // CELLS_PER_STEP
-    kblk = min(k, K_BLOCK)
-    assert k % kblk == 0, f"k={k} not a multiple of K_BLOCK={K_BLOCK}"
-    k_steps = k // kblk
-    if shared:
-        coef_spec = pl.BlockSpec(
-            (kblk, NCF), lambda i, kc: (kc, 0), memory_space=pltpu.VMEM
-        )
-    else:
-        coef_spec = pl.BlockSpec(
-            (CELLS_PER_STEP, kblk, NCF), lambda i, kc: (i, kc, 0),
-            memory_space=pltpu.VMEM,
-        )
-    t_out, i_out = pl.pallas_call(
-        partial(_stab_kernel, kblk=kblk, shared=shared),
-        grid=(steps, k_steps),
-        in_specs=[
-            pl.BlockSpec(
-                (CELLS_PER_STEP, 8, 128), lambda i, kc: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            coef_spec,
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (CELLS_PER_STEP, 128), lambda i, kc: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (CELLS_PER_STEP, 128), lambda i, kc: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-        ],
-        interpret=interpret,
-    )(rays, coefs)
-    return t_out, i_out.astype(jnp.int32)
-
-
-# ---- winner-normal extraction --------------------------------------------
-#
-# Gen-3 history: the finalize stage once gathered an 18-float row per ray
-# from a packed triangle table (ftab[best_i]); XLA TPU gathers cost
-# ~10 ns/row regardless of width, 2.6 ms at 64^3. Gen-3 replaced it with a
-# separate streaming one-hot extraction pass (4.72 -> 3.94 ms); gen-4
-# below fuses that pass into the fold so the candidate tables stream from
-# HBM exactly once.
-#
-# Normal convention (shared verbatim with the radial oracle,
-# ops/voxelize_ref.voxelize_raystab_radial_ref normal_impl="radial") —
-# every chain scalarized so Mosaic and XLA contract FMAs identically
-# (proven pattern: radial_hit's chains are bit-equal across both):
-#   w_i = d . g_i           (the radial_hit signed volumes)
-#   den = (w0 + w1) + w2
-#   ns  = w0*n0 + w1*n1 + w2*n2     (den-scaled interpolated normal)
-#   nrm = (ns / den) / max(sqrt(ss), 1e-20), ss scalarized
-#   inside = hit & ((nrm . d) > threshold)   [rule="backface"]
-NNC = 12  # normal-table row: n0(3) n1(3) n2(3) pad(3)
-
-
-# ---- gen-4: fused fold + extraction kernel -------------------------------
-#
-# One streaming pass: fold the winner AND extract its rows, reading the
-# candidate tables from HBM exactly once (the separate gen-3 extraction
-# pass re-streamed coefs + ntab, ~2x the fold's traffic). Extraction
-# cannot use gen-3's one-hot ACCUMULATE (the final winner id is unknown
-# until the last chunk), so it select-OVERWRITES instead: after folding a
-# chunk, one-hot-match the RUNNING winner id against this chunk's
-# candidate ids; where the chunk contains it (f == 1), overwrite the
-# accumulator rows with the extracted ones. Exactness argument: the final
-# winner's row lives in exactly one chunk; the running best equals the
-# final winner from that chunk onward, so that chunk's overwrite writes
-# the winner's rows and no later chunk matches them again (ids are unique
-# per cell list). Earlier overwrites held superseded rows; each overwrite
-# is a select, not arithmetic, so the surviving rows are bit-exact.
-# Miss lanes carry id BIG, matching only all-zero padding rows -> zero
-# rows, masked off by the hit test in the in-slot finalize.
-
-
-def _fold_extract_kernel2(*refs, kblk: int, shared: bool, skip: bool,
-                          t_count: int, threshold: float, rule: str,
-                          cps: int = CELLS_PER_STEP):
-    """Fused fold + winner extraction + in-slot finalize, one table read.
-
-    Inputs: rays [cps, 8, 128], coefs, ntab (+ bounds SMEM when ``skip``).
-    Outputs: t_ref/i_ref [cps, 128] (winner t / id-as-f32), out_ref
-    [cps, 4, 128] finished (nx, ny, nz, a) channels. Scratch ``acc_ref``
-    [cps, 18, 128] holds the current winner's g(9) + n(9) rows. ``cps``
-    (strips per grid step) scales inversely with K so small-candidate
-    classes don't pay ~1 us of step overhead per 8 strips
-    (cells_per_step_for).
-    """
-    if skip:
-        ray_ref, coef_ref, ntab_ref, bnd_ref, t_ref, i_ref, out_ref = (
-            refs[:-1])
-        acc_ref = refs[-1]
-    else:
-        ray_ref, coef_ref, ntab_ref, t_ref, i_ref, out_ref = refs[:-1]
-        acc_ref = refs[-1]
-        bnd_ref = None
-    kc = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-
-    @pl.when(kc == 0)
-    def _():
-        pad = (
-            (ray_ref[:, 0, :] == 0.0)
-            & (ray_ref[:, 1, :] == 0.0)
-            & (ray_ref[:, 2, :] == 0.0)
-        )
-        t_ref[...] = jnp.where(pad, -jnp.inf, jnp.inf)
-        i_ref[...] = jnp.full_like(i_ref, float(BIG_ID))
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    for ci in range(cps):
-        dx = ray_ref[ci, 0:1, :]
-        dy = ray_ref[ci, 1:2, :]
-        dz = ray_ref[ci, 2:3, :]
-        s0 = ray_ref[ci, 3:4, :]
-
-        def body(ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-            # ---- fold (verbatim _stab_kernel2 chain) ----
-            def step(g, carry, ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-                bt, bi = carry
-                if shared:
-                    cf = coef_ref[pl.ds(g * 8, 8), :]  # [8, 12]
-                else:
-                    cf = coef_ref[ci, pl.ds(g * 8, 8), :]
-
-                def col(j):
-                    return cf[:, j : j + 1]  # [8,1]
-
-                tt, hit = radial_hit(
-                    dx, dy, dz, s0,
-                    col(0), col(1), col(2),
-                    col(3), col(4), col(5),
-                    col(6), col(7), col(8),
-                    col(C_ROW),
-                )  # [8,128]
-                ii = jnp.where(hit, col(ID_ROW2), float(BIG_ID))
-
-                t4, i4 = _lexmin(tt[0:4], ii[0:4], tt[4:8], ii[4:8])
-                t2, i2 = _lexmin(t4[0:2], i4[0:2], t4[2:4], i4[2:4])
-                t1, i1 = _lexmin(t2[0:1], i2[0:1], t2[1:2], i2[1:2])
-                return _lexmin(bt, bi, t1, i1)
-
-            init = (t_ref[ci : ci + 1, :], i_ref[ci : ci + 1, :])
-            bt, bi = jax.lax.fori_loop(0, kblk // 8, step, init, unroll=True)
-            t_ref[ci : ci + 1, :] = bt
-            i_ref[ci : ci + 1, :] = bi
-
-            # ---- extraction: select-overwrite with the running winner ----
-            if shared:
-                cfb = coef_ref[:, :]  # [kblk, 12]
-                ntb = ntab_ref[:, :]
-            else:
-                cfb = coef_ref[ci]
-                ntb = ntab_ref[ci]
-            ids = cfb[:, ID_ROW2 : ID_ROW2 + 1]  # [kblk, 1]
-            oh = (ids == bi).astype(jnp.float32)  # [kblk, 128]
-            g = jax.lax.dot_general(
-                cfb[:, 0:9], oh, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # [9, 128]
-            nm = jax.lax.dot_general(
-                ntb[:, 0:9], oh, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # [9, 128]
-            f = jnp.max(oh, axis=0, keepdims=True)  # [1,128] 1 iff present
-            here = f > 0.5
-            acc_ref[ci, 0:9, :] = jnp.where(here, g, acc_ref[ci, 0:9, :])
-            acc_ref[ci, 9:18, :] = jnp.where(here, nm, acc_ref[ci, 9:18, :])
-
-        if skip:
-            worst = jnp.max(t_ref[ci, :])
-            pl.when(bnd_ref[ci, kc] <= worst)(body)
-        else:
-            body()
-
-        @pl.when(kc == nsteps - 1)
-        def _(ci=ci, dx=dx, dy=dy, dz=dz):
-            gr = acc_ref[ci]  # [18, 128]
-            # w / ns / finalize chains verbatim from _extract_kernel2
-            w0 = dx * gr[0:1] + dy * gr[1:2] + dz * gr[2:3]
-            w1 = dx * gr[3:4] + dy * gr[4:5] + dz * gr[5:6]
-            w2 = dx * gr[6:7] + dy * gr[7:8] + dz * gr[8:9]
-            den = (w0 + w1) + w2
-            nsx = w0 * gr[9:10] + w1 * gr[12:13] + w2 * gr[15:16]
-            nsy = w0 * gr[10:11] + w1 * gr[13:14] + w2 * gr[16:17]
-            nsz = w0 * gr[11:12] + w1 * gr[14:15] + w2 * gr[17:18]
-            dn = jnp.where(den == 0.0, 1.0, den)
-            nx, ny, nz = nsx / dn, nsy / dn, nsz / dn
-            ss = (nx * nx + ny * ny) + nz * nz
-            ln = jnp.maximum(jnp.sqrt(ss), 1e-20)
-            nx, ny, nz = nx / ln, ny / ln, nz / ln
-            wt = t_ref[ci : ci + 1, :]
-            wi = i_ref[ci : ci + 1, :]
-            hit = jnp.isfinite(wt) & (wi < float(t_count))
-            if rule == "hit":
-                inside = hit
-            else:
-                dot = (nx * dx + ny * dy) + nz * dz
-                inside = hit & (dot > threshold)
-            zero = jnp.zeros_like(nx)
-            out_ref[ci, 0:1, :] = jnp.where(inside, nx, zero)
-            out_ref[ci, 1:2, :] = jnp.where(inside, ny, zero)
-            out_ref[ci, 2:3, :] = jnp.where(inside, nz, zero)
-            out_ref[ci, 3:4, :] = jnp.where(inside, 1.0, zero)
-
-
-# ---- gen-5/6: lane-aligned tables (transposed) -----------------------------
-#
-# The gen-4 tables [C, K, 12] put the 12-float coefficient row in the
-# LANE dimension; TPU's (8, 128) f32 tiling pads that to 128 lanes, so
-# the physical HBM footprint and the per-query DMA traffic are ~10.7x
-# the logical bytes — the binding constraint at 256^3 (the accel's
-# logical ~1 GB of tables becomes ~10 GB resident / streamed). Gen-5
-# stores the tables TRANSPOSED, [C, 12, K]: sublanes 12 -> 16 (1.33x),
-# lanes K unpadded for K a multiple of 128, an ~8x cut.
-#
-# Gen-5 HISTORY (kernel retired, layout kept): the first kernel over
-# these tables flipped its vector geometry to match — candidates on the
-# 128 lanes, rays in sublane groups of 8. Measured on TPU it was ~3.5x
-# SLOWER than gen-4 (12.5 ms vs 3.6 ms kernels-only at 64^3, r03 A/B):
-# the winner fold needed two CROSS-LANE min-reductions per 8-ray group
-# per chunk (vs gen-4's 3-op sublane lexmin tree), the per-(ray-group)
-# winners lived in a [128, 8] scratch written through strided [8, 1]
-# single-lane slices, and the extraction matmuls ran once per 128-lane
-# slice instead of once per 256-candidate chunk. Both layouts are VPU-
-# compute-bound (~50 ops/pair vs ~0.4 B/pair of HBM), so the op-count
-# regression hit the headline directly.
-#
-# Gen-6 (_fold_extract_kernel6 below) keeps the gen-5 TABLES but not the
-# gen-5 geometry: each [12, kblk] chunk is transposed ONCE into a
-# [kblk, 12] VMEM scratch (a handful of vreg transposes, amortized over
-# the kblk/8 fold steps) and the fold + in-slot finalize run VERBATIM
-# gen-4 (rays on lanes, candidates on sublanes, sublane lexmin tree).
-# The extraction matmuls consume the lane-aligned chunk DIRECTLY —
-# cfT[0:9, :] @ onehot is already [9, kblk] x [kblk, 128] — so they
-# skip gen-4's implicit relayout. Net: gen-4 compute, gen-5 memory.
-#
-# Bit-exactness vs gen-4/the oracle: the transpose is a copy; every
-# arithmetic chain (radial_hit, lexmin fold, one-hot extraction
-# products with 0/1, finalize) is the gen-4 expression order on the
-# same values. The query dispatches per class on table shape
-# (raystab_fast.fold_extract_dispatch), so classic tables still run.
-
-
-def _fold_extract_kernel6(*refs, kblk: int, shared: bool, skip: bool,
-                          t_count: int, threshold: float, rule: str,
-                          cps: int = CELLS_PER_STEP):
-    """Gen-6 fused fold + extraction + finalize over transposed tables.
-
-    Inputs: rays [8, 8, 128], coefs/ntab [8, 12, kblk] (or [12, kblk]
-    when shared), optional bounds SMEM. Outputs as gen-4: t/i [8, 128],
-    out [8, 4, 128]. Scratch: acc [8, 18, 128] winner rows (as gen-4)
-    and cscr [kblk, 12] — the current cell's coefficient chunk transposed
-    back to classic orientation ONCE, then consumed by the verbatim gen-4
-    fold. ntab is never transposed: the extraction matmul contracts the
-    lane-aligned chunk directly.
-    """
-    if skip:
-        (ray_ref, coef_ref, ntab_ref, bnd_ref, t_ref, i_ref, out_ref,
-         acc_ref, cscr_ref) = refs
-    else:
-        (ray_ref, coef_ref, ntab_ref, t_ref, i_ref, out_ref, acc_ref,
-         cscr_ref) = refs
-        bnd_ref = None
-    kc = pl.program_id(1)
-    nsteps = pl.num_programs(1)
-
-    @pl.when(kc == 0)
-    def _():
-        pad = (
-            (ray_ref[:, 0, :] == 0.0)
-            & (ray_ref[:, 1, :] == 0.0)
-            & (ray_ref[:, 2, :] == 0.0)
-        )
-        t_ref[...] = jnp.where(pad, -jnp.inf, jnp.inf)
-        i_ref[...] = jnp.full_like(i_ref, float(BIG_ID))
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    for ci in range(cps):
-        dx = ray_ref[ci, 0:1, :]
-        dy = ray_ref[ci, 1:2, :]
-        dz = ray_ref[ci, 2:3, :]
-        s0 = ray_ref[ci, 3:4, :]
-
-        def body(ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-            cfT = coef_ref[...] if shared else coef_ref[ci]  # [12, kblk]
-            ntT = ntab_ref[...] if shared else ntab_ref[ci]
-            # one chunk transpose back to classic orientation; its cost
-            # amortizes over the kblk/8 fold steps below
-            cscr_ref[...] = jnp.transpose(cfT, (1, 0))  # [kblk, 12]
-
-            # ---- fold (verbatim _stab_kernel2 chain) ----
-            def step(g, carry, ci=ci, dx=dx, dy=dy, dz=dz, s0=s0):
-                bt, bi = carry
-                cf = cscr_ref[pl.ds(g * 8, 8), :]  # [8, 12]
-
-                def col(j):
-                    return cf[:, j : j + 1]  # [8,1]
-
-                tt, hit = radial_hit(
-                    dx, dy, dz, s0,
-                    col(0), col(1), col(2),
-                    col(3), col(4), col(5),
-                    col(6), col(7), col(8),
-                    col(C_ROW),
-                )  # [8,128]
-                ii = jnp.where(hit, col(ID_ROW2), float(BIG_ID))
-
-                t4, i4 = _lexmin(tt[0:4], ii[0:4], tt[4:8], ii[4:8])
-                t2, i2 = _lexmin(t4[0:2], i4[0:2], t4[2:4], i4[2:4])
-                t1, i1 = _lexmin(t2[0:1], i2[0:1], t2[1:2], i2[1:2])
-                return _lexmin(bt, bi, t1, i1)
-
-            init = (t_ref[ci : ci + 1, :], i_ref[ci : ci + 1, :])
-            bt, bi = jax.lax.fori_loop(0, kblk // 8, step, init, unroll=True)
-            t_ref[ci : ci + 1, :] = bt
-            i_ref[ci : ci + 1, :] = bi
-
-            # ---- extraction: select-overwrite with the running winner
-            # (same argument as gen-4) — the lane-aligned chunk is already
-            # the matmul's left operand, [9, kblk] x [kblk, 128] ----
-            ids = cscr_ref[:, ID_ROW2 : ID_ROW2 + 1]  # [kblk, 1]
-            oh = (ids == bi).astype(jnp.float32)  # [kblk, 128]
-            g = jax.lax.dot_general(
-                cfT[0:9, :], oh, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # [9, 128]
-            nm = jax.lax.dot_general(
-                ntT[0:9, :], oh, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # [9, 128]
-            f = jnp.max(oh, axis=0, keepdims=True)  # [1,128] 1 iff present
-            here = f > 0.5
-            acc_ref[ci, 0:9, :] = jnp.where(here, g, acc_ref[ci, 0:9, :])
-            acc_ref[ci, 9:18, :] = jnp.where(here, nm, acc_ref[ci, 9:18, :])
-
-        if skip:
-            worst = jnp.max(t_ref[ci, :])
-            pl.when(bnd_ref[ci, kc] <= worst)(body)
-        else:
-            body()
-
-        @pl.when(kc == nsteps - 1)
-        def _(ci=ci, dx=dx, dy=dy, dz=dz):
-            gr = acc_ref[ci]  # [18, 128]
-            # w / ns / finalize chains verbatim from _fold_extract_kernel2
-            w0 = dx * gr[0:1] + dy * gr[1:2] + dz * gr[2:3]
-            w1 = dx * gr[3:4] + dy * gr[4:5] + dz * gr[5:6]
-            w2 = dx * gr[6:7] + dy * gr[7:8] + dz * gr[8:9]
-            den = (w0 + w1) + w2
-            nsx = w0 * gr[9:10] + w1 * gr[12:13] + w2 * gr[15:16]
-            nsy = w0 * gr[10:11] + w1 * gr[13:14] + w2 * gr[16:17]
-            nsz = w0 * gr[11:12] + w1 * gr[14:15] + w2 * gr[17:18]
-            dn = jnp.where(den == 0.0, 1.0, den)
-            nx, ny, nz = nsx / dn, nsy / dn, nsz / dn
-            ss = (nx * nx + ny * ny) + nz * nz
-            ln = jnp.maximum(jnp.sqrt(ss), 1e-20)
-            nx, ny, nz = nx / ln, ny / ln, nz / ln
-            wt = t_ref[ci : ci + 1, :]
-            wi = i_ref[ci : ci + 1, :]
-            hit = jnp.isfinite(wt) & (wi < float(t_count))
-            if rule == "hit":
-                inside = hit
-            else:
-                dot = (nx * dx + ny * dy) + nz * dz
-                inside = hit & (dot > threshold)
-            zero = jnp.zeros_like(nx)
-            out_ref[ci, 0:1, :] = jnp.where(inside, nx, zero)
-            out_ref[ci, 1:2, :] = jnp.where(inside, ny, zero)
-            out_ref[ci, 2:3, :] = jnp.where(inside, nz, zero)
-            out_ref[ci, 3:4, :] = jnp.where(inside, 1.0, zero)
+    gr = [row(coef_ref, bk, j) for j in range(9)]
+    nr = [row(ntab_ref, bk, j) for j in range(9)]
+    chans = finish_channels(dx, dy, dz, gr, nr, bt, bi, t_count, threshold,
+                            rule)
+    t_ref[s, :] = bt
+    i_ref[s, :] = bi
+    for j in range(4):
+        ns_ref[s, j, :] = chans[j]
 
 
 @partial(jax.jit, static_argnames=("k", "shared", "interpret", "t_count",
-                                   "threshold", "rule", "cps_override"))
-def stab_fold_extract3(
-    rays: jnp.ndarray,   # [C, 8, 128] f32 (dx dy dz s0 rows)
-    coefs: jnp.ndarray,  # [C, 12, K] f32 (or [12, K] when shared)
-    ntab: jnp.ndarray,   # [C, 12, K] f32 (or [12, K] when shared)
+                                   "threshold", "rule"))
+def stab_fold_extract(
+    rays: jnp.ndarray,
+    coefs: jnp.ndarray,
+    ntab: jnp.ndarray,
     k: int,
     t_count: int,
     threshold: float,
@@ -744,188 +188,36 @@ def stab_fold_extract3(
     interpret: bool = False,
     bounds: jnp.ndarray | None = None,
     rule: str = "backface",
-    cps_override: int | None = None,
 ):
-    """Gen-6 fused query over lane-aligned (transposed) candidate tables.
+    """Fused closest hit + winner extraction + in-strip finalize.
 
-    Same contract and outputs as :func:`stab_fold_extract2` — (t, id, ns)
-    are bit-identical. (Name kept from the gen-5 entry point; the kernel
-    behind it is gen-6 — see the layout-history comment above.)
+    ``rays`` [C, 8, 128] (rows dx dy dz s0); ``coefs``/``ntab`` [C, K, 12]
+    or lane-aligned [C, 12, K] — or [K, 12] / [12, K] with ``shared`` (one
+    candidate list for every strip: the near-origin overflow pass);
+    ``bounds`` [C, K // K_BLOCK] chunk distance lower bounds (multi-chunk
+    classes). Returns (t [C,128] f32, id [C,128] i32, ns [C,4,128] finished
+    (nx, ny, nz, a) channels).
     """
     c = rays.shape[0]
-    assert c % CELLS_PER_STEP == 0 and k % 8 == 0
+    lane_aligned = coefs.shape[-2] == NCF2 and coefs.shape[-1] != NCF2
     kblk = min(k, K_BLOCK)
+    # k > K_BLOCK must chunk evenly or tail candidates are never tested
     assert k % kblk == 0, f"k={k} not a multiple of K_BLOCK={K_BLOCK}"
-    # interpret mode (the CPU CI path) keeps the base batching: a 64-strip
-    # step is 8x the python-level trace and brings no step-overhead win
-    # off-hardware
-    # cps_override: test hook — interpret mode otherwise pins the base
-    # batching, leaving the cps>8 index math (loop ranges, block specs,
-    # scratch shapes) exercised only on real TPUs (ADVICE r4)
-    if cps_override is not None:
-        cps = cps_override
-        assert c % cps == 0
-    else:
-        cps = CELLS_PER_STEP if interpret else cells_per_step_for(k, c)
-    steps = c // cps
-    k_steps = k // kblk
-    skip = bounds is not None and k_steps > 1 and not shared
-    if shared:
-        coef_spec = pl.BlockSpec(
-            (NCF2, kblk), lambda i, kc: (0, kc), memory_space=pltpu.VMEM
-        )
-        ntab_spec = pl.BlockSpec(
-            (NNC, kblk), lambda i, kc: (0, kc), memory_space=pltpu.VMEM
-        )
-    else:
-        coef_spec = pl.BlockSpec(
-            (cps, NCF2, kblk), lambda i, kc: (i, 0, kc),
-            memory_space=pltpu.VMEM,
-        )
-        ntab_spec = pl.BlockSpec(
-            (cps, NNC, kblk), lambda i, kc: (i, 0, kc),
-            memory_space=pltpu.VMEM,
-        )
-    in_specs = [
-        pl.BlockSpec(
-            (cps, 8, 128), lambda i, kc: (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        coef_spec,
-        ntab_spec,
-    ]
-    args = [rays, coefs, ntab]
-    if skip:
-        in_specs.append(pl.BlockSpec(
-            (cps, k_steps), lambda i, kc: (i, 0),
-            memory_space=pltpu.SMEM,
-        ))
-        args.append(bounds)
-    row_spec = pl.BlockSpec(
-        (cps, 128), lambda i, kc: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
+    skip = bounds is not None and k > kblk and not shared
+    args = [rays, coefs, ntab] + ([bounds] if skip else [])
     t_out, i_out, ns = pl.pallas_call(
-        partial(_fold_extract_kernel6, kblk=kblk, shared=shared, skip=skip,
-                t_count=t_count, threshold=threshold, rule=rule, cps=cps),
-        grid=(steps, k_steps),
-        in_specs=in_specs,
-        out_specs=[
-            row_spec,
-            row_spec,
-            pl.BlockSpec(
-                (cps, 4, 128), lambda i, kc: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
+        partial(_fold_extract_kernel, k=k, kblk=kblk, shared=shared,
+                lane_aligned=lane_aligned, skip=skip, t_count=t_count,
+                threshold=threshold, rule=rule),
+        grid=(c,),
         out_shape=[
             jax.ShapeDtypeStruct((c, 128), jnp.float32),
             jax.ShapeDtypeStruct((c, 128), jnp.float32),
             jax.ShapeDtypeStruct((c, 4, 128), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((cps, 18, 128), jnp.float32),
-            pltpu.VMEM((kblk, NCF2), jnp.float32),
-        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(*args)
-    return t_out, i_out.astype(jnp.int32), ns
-
-
-@partial(jax.jit, static_argnames=("k", "shared", "interpret", "t_count",
-                                   "threshold", "rule", "cps_override"))
-def stab_fold_extract2(
-    rays: jnp.ndarray,   # [C, 8, 128] f32 (dx dy dz s0 rows)
-    coefs: jnp.ndarray,  # [C, K, 12] f32 (or [K, 12] when shared)
-    ntab: jnp.ndarray,   # [C, K, 12] f32 (or [K, 12] when shared)
-    k: int,
-    t_count: int,
-    threshold: float,
-    shared: bool = False,
-    interpret: bool = False,
-    bounds: jnp.ndarray | None = None,
-    rule: str = "backface",
-    cps_override: int | None = None,
-):
-    """Fused closest-hit + winner extraction + in-slot finalize.
-
-    Returns (t [C,128] f32, id [C,128] i32, ns [C,4,128] finished
-    (nx, ny, nz, a) channels). (t, id) are bit-identical to
-    stab_closest_hit2's fold; the candidate tables are read once.
-    """
-    c = rays.shape[0]
-    assert c % CELLS_PER_STEP == 0 and k % 8 == 0
-    kblk = min(k, K_BLOCK)
-    # interpret mode (the CPU CI path) keeps the base batching: a 64-strip
-    # step is 8x the python-level trace and brings no step-overhead win
-    # off-hardware
-    # cps_override: test hook — interpret mode otherwise pins the base
-    # batching, leaving the cps>8 index math (loop ranges, block specs,
-    # scratch shapes) exercised only on real TPUs (ADVICE r4)
-    if cps_override is not None:
-        cps = cps_override
-        assert c % cps == 0
-    else:
-        cps = CELLS_PER_STEP if interpret else cells_per_step_for(k, c)
-    steps = c // cps
-    assert k % kblk == 0, f"k={k} not a multiple of K_BLOCK={K_BLOCK}"
-    k_steps = k // kblk
-    skip = bounds is not None and k_steps > 1 and not shared
-    if shared:
-        coef_spec = pl.BlockSpec(
-            (kblk, NCF2), lambda i, kc: (kc, 0), memory_space=pltpu.VMEM
-        )
-        ntab_spec = pl.BlockSpec(
-            (kblk, NNC), lambda i, kc: (kc, 0), memory_space=pltpu.VMEM
-        )
-    else:
-        coef_spec = pl.BlockSpec(
-            (cps, kblk, NCF2), lambda i, kc: (i, kc, 0),
-            memory_space=pltpu.VMEM,
-        )
-        ntab_spec = pl.BlockSpec(
-            (cps, kblk, NNC), lambda i, kc: (i, kc, 0),
-            memory_space=pltpu.VMEM,
-        )
-    in_specs = [
-        pl.BlockSpec(
-            (cps, 8, 128), lambda i, kc: (i, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        coef_spec,
-        ntab_spec,
-    ]
-    args = [rays, coefs, ntab]
-    if skip:
-        in_specs.append(pl.BlockSpec(
-            (cps, k_steps), lambda i, kc: (i, 0),
-            memory_space=pltpu.SMEM,
-        ))
-        args.append(bounds)
-    row_spec = pl.BlockSpec(
-        (cps, 128), lambda i, kc: (i, 0),
-        memory_space=pltpu.VMEM,
-    )
-    t_out, i_out, ns = pl.pallas_call(
-        partial(_fold_extract_kernel2, kblk=kblk, shared=shared, skip=skip,
-                t_count=t_count, threshold=threshold, rule=rule,
-                cps=cps),
-        grid=(steps, k_steps),
-        in_specs=in_specs,
-        out_specs=[
-            row_spec,
-            row_spec,
-            pl.BlockSpec(
-                (cps, 4, 128), lambda i, kc: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-            jax.ShapeDtypeStruct((c, 128), jnp.float32),
-            jax.ShapeDtypeStruct((c, 4, 128), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((cps, 18, 128), jnp.float32)],
-        interpret=interpret,
+        name="raystab_fold_extract",
     )(*args)
     return t_out, i_out.astype(jnp.int32), ns

@@ -4,7 +4,7 @@ acceleration-structure UPDATE analog.
 The reference builds its BLAS/TLAS once for static geometry
 (/root/reference/DXRVoxelizer/Content/Voxelizer.cpp:264-326); DXR's
 general machinery also offers PERFORM_UPDATE refits for deforming,
-fixed-topology meshes. The TPU-native equivalent splits the gen-2 accel
+fixed-topology meshes. The equivalent here splits the gen-2 accel
 (ops/raystab_fast.py) into:
 
 - a GEOMETRY-SHAPE half — per-class candidate id tables, ray strips,
@@ -49,8 +49,7 @@ def _gather_rows_to_cols(mat, idx2d):
     """operand [R, W], indices [VC, K] -> output [VC, W, K]: the offset
     (W) axis placed at output dim 1 by the gather itself — the
     lane-aligned table layout comes straight out of the gather, no
-    separate [VC, K, W] -> [VC, W, K] transpose op (slope-measured ~1.8 ms
-    cheaper across the 64^3 dragon's padded classes)."""
+    separate [VC, K, W] -> [VC, W, K] transpose op."""
     vc, k = idx2d.shape
     dn = jax.lax.GatherDimensionNumbers(
         offset_dims=(1,),
@@ -75,11 +74,10 @@ def _refit_tables(verts_norm, normals, tris, tabs, ov_ids,
     assembly bit-for-bit (lane-aligned classes gather DIRECTLY into the
     [VC, 24, K] layout, _gather_rows_to_cols).
 
-    XLA TPU gathers cost per ROW regardless of row width, so the
-    coefficient and normal matrices are fused into ONE [T+1, 24] matrix
-    and gathered together — half the gather rows (0.98M slots on the
-    64^3 dragon's directional-pad tables) and half the padded
-    intermediates; the split into the kernel operands is pure slicing."""
+    The coefficient and normal matrices are fused into ONE [T+1, 24]
+    matrix and gathered together — half the gather rows and half the
+    padded intermediates; the split into the kernel operands is pure
+    slicing."""
     t_count = tris.shape[0]
     coef = _radial_coef_matrix(
         verts_norm, tris, jnp.arange(t_count, dtype=jnp.int32)

@@ -1,10 +1,9 @@
 """Trilinear texture sampling (the LINEAR_CLAMP sampler analog).
 
 The reference samples its 3D grid with a linear-clamp sampler
-(Content/Voxelizer.cpp:256, PSRayCast.hlsl:106-108). TPUs have no texture
-units; this is the explicit 8-tap gather with edge clamping, shared by the
-jax.numpy renderer (XLA lowers the gathers) — the Pallas renderer implements
-its own fused form.
+(Content/Voxelizer.cpp:256, PSRayCast.hlsl:106-108). This is the explicit
+8-tap gather with edge clamping used by the jax.numpy renderers (XLA lowers
+the gathers).
 """
 
 from __future__ import annotations

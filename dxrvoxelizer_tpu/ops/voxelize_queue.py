@@ -1,34 +1,29 @@
-"""Work-queue parity voxelizer (Pallas TPU) — the hi-res production kernel.
+"""Work-queue parity voxelizer — the production parity path.
 
-The first-generation kernel (ops/voxelize_pallas.py) bins triangles to
-32x32-column tiles and pads every tile to the *global* max bin size, so at
-256^3 a typical frame pays ~3x padding waste and every (tile, triangle) pair
-tests all 1024 columns even though a typical triangle overlaps ~10. This
-kernel removes both costs; same math, bit-identical output:
+Triangles are binned to **16x8-column tiles** (128 columns, one per thread
+of a 4-warp program) and laid out as an exact per-tile run in one flat
+coefficient array: tile t owns rows ``[tile_row0[t], tile_row0[t] +
+tile_count[t])``, each run starting on a ``k_chunk`` boundary (padding
+rows carry zero coefficients, so they are XOR no-ops). Tiles with many
+triangles get long runs, empty tiles none (the DXR analog: rays traverse
+only their own BVH subtree, reference Voxelizer.cpp:313-323 builds
+exactly that).
 
-- **16x8-column tiles** (one 128-lane strip): a triangle pays 128 column
-  tests instead of 1024 — binning granularity matches the VPU register shape;
-- **an exact work queue instead of padded bins**: chunks of ``k_chunk``
-  triangles are laid out back-to-back per tile in one flat array; the Pallas
-  grid runs over *chunks*, and three scalar-prefetch arrays map each chunk
-  to its output tile, give its sub-block count, and flag a tile's final
-  chunk (which converts the tile in place). Tiles with many triangles get
-  many chunks, empty tiles get none (the DXR analog: rays traverse only
-  their own BVH subtree, reference Voxelizer.cpp:313-323 builds exactly
-  that). The inner loop is statically unrolled over zero-padded slots — a
-  dynamic trip bound costs more in while-loop overhead than the padded
-  no-op compute it skips (256^3 deforming capacity queue: 0.91 ms static
-  vs 1.30 dynamic); traced layouts may use static_trip too, since their
-  padding slots carry zero coefficients (XOR no-ops);
-- **VMEM-resident output**: per-grid-step output traffic (dynamic output
-  blocks or per-tile writeback DMA) measures ~1 us/step of scalar plumbing —
-  more than the compute itself. The whole packed grid (2 MB at 256^3)
-  instead lives in VMEM for the launch and flushes once; at 512^3 the tile
-  range is split into groups so each group's slab still fits.
+The fold (one implementation per platform, picked by ``ops/route.py``):
 
-Coverage/cutoff arithmetic is expression-for-expression the same as the
-oracle (ops/geom.py) and the first-generation kernel, so all three produce
-bit-identical occupancy words.
+- **GPU**: :func:`queue_fold_triton`, a Pallas kernel on the Triton route.
+  One program per tile walks its run, XOR-accumulates each column's
+  crossing bit into the ``n//32`` words it keeps in registers, converts
+  the crossing field to occupancy (suffix parity) and stores the tile
+  once. No atomics and no cross-program order: the result is
+  deterministic.
+- **CPU**: :func:`queue_fold_xla`, the same per-row expressions in plain
+  jnp over 8-row sub-chunks, a per-tile XOR by prefix-XOR differences and
+  :func:`suffix_parity_words`. It is also the plain version the kernel is
+  timed against on the card.
+
+Coverage/cutoff arithmetic is expression-for-expression the oracle's
+(ops/geom.py), so both folds reproduce ``voxelize_parity_ref`` bit for bit.
 """
 
 from __future__ import annotations
@@ -40,149 +35,164 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from dxrvoxelizer_tpu.ops.geom import parity_tri_setup
-from dxrvoxelizer_tpu.ops.voxelize_pallas import NCOEF, SUB, pack_coeffs
-from dxrvoxelizer_tpu.ops.voxelize_pallas import (
+from dxrvoxelizer_tpu.ops import route
+from dxrvoxelizer_tpu.ops.geom import (
+    NCOEF,
+    pack_coeffs,
+    parity_tri_setup,
+)
+from dxrvoxelizer_tpu.ops.geom import (
     _EX0, _EY0, _EO0, _TL0, _EX1, _EY1, _EO1, _TL1,
     _EX2, _EY2, _EO2, _TL2, _ZX, _ZY, _ZO, _VALID,
 )
 
 TILE_X = 16  # tile extent in grid-x columns
-TILE_Y = 8  # tile extent in grid-y columns (16*8 = 128 = one lane strip)
+TILE_Y = 8  # tile extent in grid-y columns (16*8 = 128 columns per tile)
+FOLD_ROWS = 8  # row sub-chunk of the plain fold; k_chunk must be a multiple
 
 
 @dataclass
 class QueueStats:
     n_tiles: int
-    num_chunks: int  # padded queue length (grid size)
+    num_chunks: int  # padded queue length in k_chunk-row chunks
     real_chunks: int
     pairs: int  # (tile, triangle) pairs before chunk padding
     overflow: int  # triangles appended to every tile
 
 
-CHUNKS_PER_STEP = 8  # queue chunks per grid step
+def _crossing(c, px, py, n: int):
+    """One triangle row's crossing against columns (px, py) -> (word index,
+    crossing bit): the oracle's coverage/cutoff expressions (ops/geom.py
+    ``column_crossing``). A crossing with cutoff m flips voxels k < m, i.e.
+    contributes ONE bit at position m-1 of the crossing field; occupancy
+    is the suffix parity of that field. ``c(j)`` reads coefficient j."""
+    e0 = c(_EX0) * px + c(_EY0) * py + c(_EO0)
+    e1 = c(_EX1) * px + c(_EY1) * py + c(_EO1)
+    e2 = c(_EX2) * px + c(_EY2) * py + c(_EO2)
+    in0 = (e0 > 0) | ((e0 == 0) & (c(_TL0) > 0))
+    in1 = (e1 > 0) | ((e1 == 0) & (c(_TL1) > 0))
+    in2 = (e2 > 0) | ((e2 == 0) & (c(_TL2) > 0))
+    covered = in0 & in1 & in2 & (c(_VALID) > 0)
+    z = c(_ZX) * px + c(_ZY) * py + c(_ZO)
+    cutoff = jnp.clip(jnp.ceil(z), 0.0, float(n)).astype(jnp.int32)
+    ci = cutoff - 1  # -1 (no crossing below any voxel) matches no word
+    bit = jnp.where(covered, jnp.int32(1) << (ci & 31), jnp.int32(0))
+    return ci >> 5, bit  # arithmetic shift: -1 -> -1
 
 
-def _queue_kernel(tile_ref, nsub_ref, last_ref, off_ref, coef_ref, out_ref,
-                  *, n: int, nty: int, k_chunk: int,
-                  static_trip: bool = False):
-    """One grid step: CHUNKS_PER_STEP queue chunks, each XORing its parity
-    masks into its tile.
-
-    tile_ref/nsub_ref: scalar-prefetch [num_chunks] int32 — the chunk's
-        output tile and its real sub-block count (the dynamic trip bound:
-        queue-padding slots cost zero compute)
-    coef_ref: [CHUNKS_PER_STEP * k_chunk, NCOEF] f32 (this step's triangles)
-    out_ref: [n_tiles, W, 128] int32 — the ENTIRE output, resident in VMEM
-        for the whole launch (2 MB at 256^3). Grid-step plumbing measures
-        ~1 us/step when the output block is dynamically indexed per step or
-        written back by per-tile DMA; holding it resident removes all
-        per-step output traffic and all first/last-chunk bookkeeping.
-        Batching chunks amortizes the remaining ~0.5 us/step grid plumbing
-        (1200 single-chunk steps ~ 0.6 ms at 256^3 — the kernel's dominant
-        cost before batching).
-    """
-    c0 = pl.program_id(0) * CHUNKS_PER_STEP
-    w_words = n // 32
-
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    for sc in range(CHUNKS_PER_STEP):
-        _queue_chunk(
-            tile_ref, nsub_ref, last_ref, off_ref, coef_ref, out_ref,
-            c0 + sc, sc, n=n, nty=nty, k_chunk=k_chunk,
-            static_trip=static_trip,
-        )
+def _tile_columns(tile, nty: int):
+    """Column centers (px, py) [..., 128] of global tile ids ``tile`` [...]:
+    column l of a tile is (x_local, y_local) = (l // TILE_Y, l % TILE_Y)."""
+    tx = tile // nty
+    ty = tile - tx * nty
+    lane = jnp.arange(128, dtype=jnp.int32)
+    px = (tx[..., None] * TILE_X + lane // TILE_Y).astype(jnp.float32)
+    py = (ty[..., None] * TILE_Y + lane % TILE_Y).astype(jnp.float32)
+    return px, py
 
 
-def _queue_chunk(tile_ref, nsub_ref, last_ref, off_ref, coef_ref, out_ref,
-                 c, sc: int, *, n: int, nty: int, k_chunk: int,
-                 static_trip: bool):
-    """XOR one chunk's parity masks into its tile (sub-chunk ``sc`` of the
-    current grid step's coefficient block)."""
-    w_words = n // 32
-    tile_id = tile_ref[c]
-    tile_global = tile_id + off_ref[0]  # group/slab base (prefetch scalar)
-    tx = tile_global // nty
-    ty = tile_global - tx * nty
+def _fold_kernel(row0_ref, cnt_ref, off_ref, coef_ref, out_ref, *, n: int,
+                 nty: int, wp: int):
+    """One tile: XOR its run's crossing bits into [wp, 128] words held in
+    registers, suffix-parity them, store once."""
+    t = pl.program_id(0)
+    px, py = _tile_columns(t + off_ref[0], nty)
+    word = jax.lax.broadcasted_iota(jnp.int32, (wp, 128), 0)
 
-    # lane l covers column (x_local, y_local) = (l // TILE_Y, l % TILE_Y)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    px = (tx * TILE_X + lane // TILE_Y).astype(jnp.float32)  # (1,128)
-    py = (ty * TILE_Y + lane % TILE_Y).astype(jnp.float32)
+    def body(r, acc):
+        pw, bit = _crossing(lambda j: coef_ref[r, j], px, py, n)
+        return acc ^ jnp.where(pw[None, :] == word, bit[None, :], 0)
 
-    def step(g, acc):
-        cf = coef_ref[pl.ds(sc * k_chunk + g * SUB, SUB), :]  # (SUB, NCOEF)
+    r0 = row0_ref[t]
+    acc = jax.lax.fori_loop(
+        r0, r0 + cnt_ref[t], body, jnp.zeros((wp, 128), jnp.int32)
+    )
+    # crossing field -> occupancy: suffix parity within each word, then the
+    # parity of all strictly-higher words as a full-word flip
+    s = acc
+    for sh in (1, 2, 4, 8, 16):
+        s = s ^ jax.lax.shift_right_logical(s, jnp.int32(sh))
+    par = s & 1
+    higher = (jnp.sum(par, axis=0, keepdims=True) - jnp.cumsum(par, axis=0)) & 1
+    out_ref[t] = s ^ (0 - higher)
 
-        def col(row):
-            return cf[:, row : row + 1]  # (SUB, 1)
 
-        ex0, ey0, eo0, tl0 = col(_EX0), col(_EY0), col(_EO0), col(_TL0)
-        ex1, ey1, eo1, tl1 = col(_EX1), col(_EY1), col(_EO1), col(_TL1)
-        ex2, ey2, eo2, tl2 = col(_EX2), col(_EY2), col(_EO2), col(_TL2)
-        zx, zy, zo, valid = col(_ZX), col(_ZY), col(_ZO), col(_VALID)
+@partial(jax.jit, static_argnames=("n", "interpret"))
+def queue_fold_triton(coefs, tile_row0, tile_count, tile_off, n: int,
+                      interpret: bool = False):
+    """Kernel fold of a built queue -> occupancy tiles [tiles, n//32, 128].
 
-        e0 = ex0 * px + ey0 * py + eo0  # (SUB,128)
-        e1 = ex1 * px + ey1 * py + eo1
-        e2 = ex2 * px + ey2 * py + eo2
-        in0 = (e0 > 0) | ((e0 == 0) & (tl0 > 0))
-        in1 = (e1 > 0) | ((e1 == 0) & (tl1 > 0))
-        in2 = (e2 > 0) | ((e2 == 0) & (tl2 > 0))
-        covered = in0 & in1 & in2 & (valid > 0)
-        cov_mask = jnp.where(covered, jnp.int32(-1), jnp.int32(0))
-        z = zx * px + zy * py + zo
-        cutoff = jnp.clip(jnp.ceil(z), 0.0, float(n)).astype(jnp.int32)
+    ``tile_off`` ([1] or scalar int32, may be traced — a shard_map axis
+    index) is the global id of the first tile in ``tile_row0``."""
+    n_win = tile_row0.shape[0]
+    w = n // 32
+    wp = pl.next_power_of_2(w)  # Triton blocks are powers of two
+    out = pl.pallas_call(
+        partial(_fold_kernel, n=n, nty=n // TILE_Y, wp=wp),
+        grid=(n_win,),
+        out_shape=jax.ShapeDtypeStruct((n_win, wp, 128), jnp.int32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="parity_queue_fold",
+    )(
+        tile_row0.astype(jnp.int32), tile_count.astype(jnp.int32),
+        jnp.asarray(tile_off, jnp.int32).reshape(1), coefs,
+    )
+    return out[:, :w]
 
-        # suffix-bit formulation: a crossing with cutoff m flips voxels
-        # k < m, i.e. contributes ONE bit at position m-1 of the
-        # crossing-bit field; occupancy = suffix parity of that field,
-        # recovered in place on the tile's last chunk (below) — see also
-        # suffix_parity_words(), the jnp reference of the conversion. One
-        # bit means one masked select per word instead of a prefix mask.
-        ci = cutoff - 1  # -1 (no crossing below any voxel) matches no word
-        pw = ci >> 5  # arithmetic shift: -1 -> -1
-        bitsel = (jnp.int32(1) << (ci & 31)) & cov_mask  # (SUB,128)
 
-        new_acc = []
-        for w in range(w_words):
-            word = jnp.where(pw == w, bitsel, jnp.int32(0))
-            f4 = word[0:4] ^ word[4:8]
-            f2 = f4[0:2] ^ f4[2:4]
-            new_acc.append(acc[w] ^ (f2[0:1] ^ f2[1:2]))  # (1,128)
-        return tuple(new_acc)
+@partial(jax.jit, static_argnames=("n",))
+def queue_fold_xla(coefs, tile_row0, tile_count, tile_off, n: int):
+    """Plain-jnp fold of a built queue, same contract as
+    :func:`queue_fold_triton`: per 8-row sub-chunk crossing words (XOR
+    reduce), a per-tile XOR from prefix-XOR differences, suffix parity."""
+    n_win = tile_row0.shape[0]
+    w = n // 32
+    cf = coefs.reshape(-1, FOLD_ROWS, NCOEF)  # [C, R, NCOEF]
+    n_sub = cf.shape[0]
+    row0 = tile_row0.astype(jnp.int32)
+    cnt = tile_count.astype(jnp.int32)
+    start = jnp.arange(n_sub, dtype=jnp.int32) * FOLD_ROWS
+    tile_of = jnp.clip(
+        jnp.searchsorted(row0, start, side="right").astype(jnp.int32) - 1,
+        0, n_win - 1,
+    )
+    live = start < row0[tile_of] + cnt[tile_of]
+    tile = tile_of + jnp.asarray(tile_off, jnp.int32).reshape(())
+    px, py = _tile_columns(tile, n // TILE_Y)  # [C, 128]
+    pw, bit = _crossing(
+        lambda j: cf[:, :, j][:, :, None], px[:, None, :], py[:, None, :], n
+    )  # [C, R, 128]
+    words = jnp.stack(
+        [
+            jax.lax.reduce(
+                jnp.where(pw == wi, bit, 0), jnp.int32(0),
+                jax.lax.bitwise_xor, (1,),
+            )
+            for wi in range(w)
+        ],
+        axis=1,
+    )  # [C, W, 128]
+    words = jnp.where(live[:, None, None], words, 0)
+    cx = jax.lax.associative_scan(jnp.bitwise_xor, words, axis=0)
+    first = row0 // FOLD_ROWS
+    last = first + (cnt + FOLD_ROWS - 1) // FOLD_ROWS - 1
+    hi = cx[jnp.clip(last, 0, n_sub - 1)]
+    lo = jnp.where(
+        (first > 0)[:, None, None], cx[jnp.clip(first - 1, 0, n_sub - 1)], 0
+    )
+    tiles = jnp.where((cnt > 0)[:, None, None], hi ^ lo, 0)
+    return suffix_parity_words(tiles)
 
-    init = tuple(jnp.zeros((1, 128), jnp.int32) for _ in range(w_words))
-    if static_trip:
-        # fully unrolled: queue-padding slots have zero coefficients
-        # (valid=0 -> no coverage -> XOR of 0), so skipping them is purely
-        # an optimization — a dynamic while-loop's per-iteration overhead
-        # can cost more than the padded compute it avoids
-        acc = jax.lax.fori_loop(0, k_chunk // SUB, step, init, unroll=True)
-    else:
-        acc = jax.lax.fori_loop(0, nsub_ref[c], step, init)
-    upd = jnp.concatenate(acc, axis=0)  # [W, 128]
-    row = pl.ds(tile_id, 1)
-    out_ref[row] ^= upd[None]
 
-    @pl.when(last_ref[c] == 1)
-    def _():
-        # all of this tile's crossings are in: convert the crossing-bit
-        # field to occupancy in place (suffix parity within + across words)
-        u = out_ref[row][0]  # [W, 128]
-        s = u
-        for sh in (1, 2, 4, 8, 16):
-            s = s ^ jax.lax.shift_right_logical(s, jnp.int32(sh))
-        par = s & jnp.int32(1)  # full-word parity, [W, 128]
-        carry = jnp.zeros((1, 128), jnp.int32)
-        outw = [None] * w_words
-        for w in range(w_words - 1, -1, -1):
-            outw[w] = s[w : w + 1] ^ (jnp.int32(0) - carry)
-            carry = carry ^ par[w : w + 1]
-        out_ref[row] = jnp.concatenate(outw, axis=0)[None]
+def _fold_for(interpret: bool):
+    """The platform's fold, or the kernel in interpret mode when asked."""
+    if interpret:
+        return partial(queue_fold_triton, interpret=True)
+    return route.parity_voxelize()
 
 
 def suffix_parity_words(words: jnp.ndarray) -> jnp.ndarray:
@@ -203,11 +213,8 @@ def suffix_parity_words(words: jnp.ndarray) -> jnp.ndarray:
 
 
 def _tiles_to_grid(out: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Occupancy tiles [n_tiles, W, 128] -> packed occupancy [N, N, W].
-
-    The suffix-parity conversion already happened in-kernel on each tile's
-    last chunk; this is pure layout.
-    """
+    """Occupancy tiles [n_tiles, W, 128] -> packed occupancy [N, N, W]
+    (pure layout: the suffix-parity conversion already happened)."""
     w_words = n // 32
     ntx, nty = n // TILE_X, n // TILE_Y
     x = out.reshape(ntx, nty, w_words, TILE_X, TILE_Y)
@@ -261,12 +268,10 @@ def _queue_phase_a(verts_norm, tris, n: int, max_span_x: int, max_span_y: int,
         (max_span_x * max_span_y, t_count),
     ).reshape(-1)
 
-    # payload-carrying sort: `keys[argsort]`-style post-gathers cost ~3x the
-    # sort itself on TPU. When (tile, tri) fits in 32 bits, pack both into
-    # ONE uint32 and sort a single array — measured 2.3x faster than the
-    # two-array tuple sort (4.8 -> 2.1 ms on 3.2M rows). Run order within a
-    # tile becomes tri-ascending instead of slot-major, which is invisible
-    # to the XOR parity fold (commutative).
+    # When (tile, tri) fits in 32 bits, pack both into ONE uint32 and sort
+    # a single array instead of a two-array tuple sort with a payload.
+    # Run order within a tile becomes tri-ascending instead of slot-major,
+    # which is invisible to the XOR parity fold (commutative).
     t_bits = max(int(np.ceil(np.log2(max(t_count, 2)))), 1)
     if (n_tiles + 1) << t_bits <= (1 << 32) - 1:
         packed = (
@@ -321,13 +326,14 @@ def build_queue(
     max_span_x: int = 4,
     max_span_y: int = 8,
 ):
-    """Build the flat work queue -> (coefs, chunk_tile, chunk_first, stats).
+    """Build the flat work queue -> (coefs, tile_row0, tile_count, stats).
 
     One host sync (the per-tile counts, ~n^2/128 int32s) between the two
-    jitted device phases; the queue layout itself is tiny host numpy work.
-    The chunk count is bucketed (multiples of 256) so the kernel executable
-    is stable across frames of a deforming mesh.
+    jitted device phases; the layout itself is tiny host numpy work. The
+    chunk count is bucketed (multiples of 128) so the fold's executable is
+    stable across frames of a deforming mesh.
     """
+    assert k_chunk % FOLD_ROWS == 0, k_chunk
     ntx, nty = n // TILE_X, n // TILE_Y
     n_tiles = ntx * nty
     coef, sorted_tris, starts, counts, ov_ids, n_ov_d = _queue_phase_a(
@@ -340,43 +346,25 @@ def build_queue(
 
     # overflow triangles (too big for the span cap) may cover any column, so
     # with any overflow present every tile gets a run; otherwise empty tiles
-    # get no chunks at all (the kernel zero-fills the whole output up front)
+    # get none
     per_tile = np.where(
         (counts_h > 0) | (n_ov > 0), counts_h + n_ov, 0
     )
     chunks_per_tile = (per_tile + k_chunk - 1) // k_chunk
     real_chunks = int(chunks_per_tile.sum())
     num_chunks = max(-(-real_chunks // 128) * 128, 128)
-
-    # padding chunks: last tile, zero sub-blocks (a zero-trip XOR is a no-op
-    # and the tile is already converted; using the last tile keeps
-    # chunk_tile ascending for group splitting)
-    chunk_tile = np.full(num_chunks, n_tiles - 1, dtype=np.int32)
-    chunk_nsub = np.zeros(num_chunks, dtype=np.int32)  # dynamic trip bounds
-    chunk_last = np.zeros(num_chunks, dtype=np.int32)  # tile-final flags
-
-    tile_ids = np.repeat(
-        np.arange(n_tiles, dtype=np.int32), chunks_per_tile
-    )
-    chunk_tile[:real_chunks] = tile_ids
     first_pos = np.zeros(n_tiles, dtype=np.int64)
     first_pos[1:] = np.cumsum(chunks_per_tile)[:-1]
-    chunk_idx = np.arange(real_chunks, dtype=np.int64)
-    within = chunk_idx - first_pos[tile_ids]  # chunk # within its tile
-    remaining = per_tile[tile_ids] - within * k_chunk
-    chunk_nsub[:real_chunks] = (
-        (np.minimum(remaining, k_chunk) + SUB - 1) // SUB
-    )
-    has_run = chunks_per_tile > 0
-    chunk_last[(first_pos + chunks_per_tile - 1)[has_run]] = 1
 
     # rows of the virtual [sorted_tris | ov_ids | sentinel] concatenation
     slot = np.arange(num_chunks * k_chunk, dtype=np.int64)
     chunk_of_slot = slot // k_chunk
-    tile_of_slot = chunk_tile[np.minimum(chunk_of_slot, num_chunks - 1)]
-    within_tile = slot - first_pos[tile_of_slot] * k_chunk
+    tile_of_chunk = np.append(
+        np.repeat(np.arange(n_tiles, dtype=np.int64), chunks_per_tile), 0
+    )  # + a dummy entry for the padding chunks (masked by real_slot)
     real_slot = chunk_of_slot < real_chunks
-    t_idx = np.where(real_slot, within_tile, -1)
+    tile_of_slot = tile_of_chunk[np.minimum(chunk_of_slot, real_chunks)]
+    t_idx = np.where(real_slot, slot - first_pos[tile_of_slot] * k_chunk, -1)
     cnt = counts_h[tile_of_slot]
     in_run = real_slot & (t_idx >= 0) & (t_idx < cnt)
     in_ov = real_slot & (t_idx >= cnt) & (t_idx < cnt + n_ov)
@@ -399,198 +387,17 @@ def build_queue(
     )
     return (
         coefs,
-        jnp.asarray(chunk_tile),
-        jnp.asarray(chunk_nsub),
-        jnp.asarray(chunk_last),
+        jnp.asarray(first_pos * k_chunk, jnp.int32),
+        jnp.asarray(per_tile, jnp.int32),
         stats,
     )
 
 
-VMEM_OUT_BUDGET = 4 * 1024 * 1024  # resident-output budget per launch (bytes)
-
-
-def _output_groups(n: int) -> int:
-    """Tile-group count whose resident output fits VMEM_OUT_BUDGET.
-
-    Group boundaries are whole tx rows of tiles, so the finest split is one
-    row per group; one row (2*n^2 bytes) must itself fit the budget — true
-    up to 1024^3 at the current budget; beyond that a finer split axis is
-    needed and this raises instead of looping forever.
-    """
-    ntx, nty = n // TILE_X, n // TILE_Y
-    bytes_full = ntx * nty * (n // 32) * 128 * 4
-    bytes_row = bytes_full // ntx
-    assert bytes_row <= VMEM_OUT_BUDGET, (
-        f"one tx row of tiles ({bytes_row} B at n={n}) exceeds "
-        f"VMEM_OUT_BUDGET={VMEM_OUT_BUDGET} B; grid too large for the "
-        "row-granular group split"
-    )
-    n_groups = max(1, -(-bytes_full // VMEM_OUT_BUDGET))
-    while ntx % n_groups:  # group boundary = whole tx rows of tiles
-        n_groups += 1
-    return n_groups
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "n", "k_chunk", "n_tiles_grp", "interpret", "static_trip",
-    ),
-)
-def _queue_run_group(
-    coefs: jnp.ndarray,
-    chunk_tile: jnp.ndarray,
-    chunk_nsub: jnp.ndarray,
-    chunk_last: jnp.ndarray,
-    chunk_off: jnp.ndarray,
-    n: int,
-    k_chunk: int,
-    n_tiles_grp: int,
-    interpret: bool = False,
-    static_trip: bool = False,
-) -> jnp.ndarray:
-    """Run the queue kernel over one tile group -> [n_tiles_grp, W, 128].
-
-    ``chunk_tile`` must already be rebased to the group (0-based);
-    ``chunk_off`` ([1] int32, may be traced — e.g. a shard_map axis index)
-    restores global column coordinates inside the kernel.
-    """
-    num_chunks = chunk_tile.shape[0]
-    assert coefs.shape == (num_chunks * k_chunk, NCOEF)
-    nty = n // TILE_Y
-    w_words = n // 32
-
-    assert num_chunks % CHUNKS_PER_STEP == 0
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_chunks // CHUNKS_PER_STEP,),
-        in_specs=[
-            pl.BlockSpec(
-                (CHUNKS_PER_STEP * k_chunk, NCOEF),
-                lambda c, *_: (c, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (n_tiles_grp, w_words, 128),
-            lambda c, *_: (0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    )
-    return pl.pallas_call(
-        partial(
-            _queue_kernel, n=n, nty=nty, k_chunk=k_chunk,
-            static_trip=static_trip,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_tiles_grp, w_words, 128), jnp.int32),
-        interpret=interpret,
-    )(chunk_tile, chunk_nsub, chunk_last,
-      chunk_off.astype(jnp.int32).reshape(1), coefs)
-
-
-def _prepare_queue_groups(
-    coefs: jnp.ndarray,
-    chunk_tile_host: np.ndarray,
-    chunk_nsub_host: np.ndarray,
-    chunk_last_host: np.ndarray,
-    n: int,
-    k_chunk: int = 64,
-):
-    """Split a built queue into VMEM tile groups -> (group args, tiles_grp).
-
-    Each group entry is (coef_g, tile_g, nsub_g, last_g, lo) ready for
-    :func:`_queue_run_group` — all layout/padding host work happens here, so
-    a static mesh can pay it ONCE and per frame only dispatch the kernel.
-    """
-    ntx, nty = n // TILE_X, n // TILE_Y
-    n_tiles = ntx * nty
-    n_groups = _output_groups(n)
-    tiles_grp = n_tiles // n_groups
-
-    ct = np.asarray(chunk_tile_host)
-    cn = np.asarray(chunk_nsub_host)
-    cl = np.asarray(chunk_last_host)
-    groups = []
-    for g in range(n_groups):
-        lo, hi = g * tiles_grp, (g + 1) * tiles_grp
-        c0, c1 = int(np.searchsorted(ct, lo)), int(np.searchsorted(ct, hi))
-        nc = max(-(-(c1 - c0) // 128) * 128, 128)
-        tile_g = np.full(nc, tiles_grp - 1, dtype=np.int32)
-        nsub_g = np.zeros(nc, dtype=np.int32)
-        last_g = np.zeros(nc, dtype=np.int32)
-        tile_g[: c1 - c0] = ct[c0:c1] - lo
-        nsub_g[: c1 - c0] = cn[c0:c1]
-        last_g[: c1 - c0] = cl[c0:c1]
-        start, end = c0 * k_chunk, (c0 + nc) * k_chunk
-        coef_g = coefs[start : min(end, coefs.shape[0])]
-        if end > coefs.shape[0]:
-            coef_g = jnp.concatenate(
-                [coef_g, jnp.zeros((end - coefs.shape[0], NCOEF), coefs.dtype)]
-            )
-        # rows past this group's real chunks are OTHER groups' live
-        # triangles (nc rounds the chunk range up to 128): static_trip
-        # unrolls every slot regardless of nsub, so they must be zeroed or
-        # they XOR into this group's last tile — 4 corrupted voxels per
-        # boundary measured before the fix
-        real_rows = (c1 - c0) * k_chunk
-        if real_rows < coef_g.shape[0]:
-            row = jnp.arange(coef_g.shape[0], dtype=jnp.int32)[:, None]
-            coef_g = jnp.where(row < real_rows, coef_g, 0.0)
-        groups.append(
-            (coef_g, jnp.asarray(tile_g), jnp.asarray(nsub_g),
-             jnp.asarray(last_g), jnp.asarray([lo], jnp.int32))
-        )
-    return groups, tiles_grp
-
-
-def _run_queue_groups(groups, tiles_grp: int, n: int, k_chunk: int,
-                      interpret: bool = False, static_trip: bool = True,
-                      perturb=None) -> jnp.ndarray:
-    """Dispatch the queue kernel over prepared groups -> packed words.
-
-    ``perturb``: optional f32 scalar added as ``coef + perturb * 1e-38`` —
-    an exact f32 no-op that gives benchmark scan bodies a carry dependence
-    (anti-hoist) without re-preparing the groups.
-    """
-    outs = []
-    for coef_g, tile_g, nsub_g, last_g, off in groups:
-        if perturb is not None:
-            coef_g = coef_g + perturb * 1e-38
-        outs.append(
-            _queue_run_group(
-                coef_g, tile_g, nsub_g, last_g, off,
-                n, k_chunk, tiles_grp,
-                interpret=interpret, static_trip=static_trip,
-            )
-        )
-    out = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
-    return _tiles_to_grid(out, n)
-
-
-def voxelize_parity_queue_run(
-    coefs: jnp.ndarray,
-    chunk_tile_host: np.ndarray,
-    chunk_nsub_host: np.ndarray,
-    chunk_last_host: np.ndarray,
-    n: int,
-    k_chunk: int = 64,
-    interpret: bool = False,
-    static_trip: bool = True,
-) -> jnp.ndarray:
-    """Run the queue kernel -> packed occupancy words [N, N, N//32].
-
-    The resident output must fit VMEM; above the budget (512^3) the tile
-    range splits into groups, each launched over its contiguous chunk
-    subrange (chunk_tile is tile-ascending by construction).
-    """
-    groups, tiles_grp = _prepare_queue_groups(
-        coefs, chunk_tile_host, chunk_nsub_host, chunk_last_host, n, k_chunk
-    )
-    return _run_queue_groups(
-        groups, tiles_grp, n, k_chunk,
-        interpret=interpret, static_trip=static_trip,
-    )
+def run_queue(coefs, tile_row0, tile_count, n: int, interpret: bool = False,
+              tile_off=0) -> jnp.ndarray:
+    """Fold a built queue -> packed occupancy words [N, N, N//32]."""
+    tiles = _fold_for(interpret)(coefs, tile_row0, tile_count, tile_off, n)
+    return _tiles_to_grid(tiles, n)
 
 
 class StaticVoxelizer:
@@ -598,30 +405,30 @@ class StaticVoxelizer:
 
     The reference builds its acceleration structure once at init
     (Content/Voxelizer.cpp:264-326) and per frame only re-dispatches rays
-    (:351-369). This is that split for the queue kernel: ``build_queue``'s
-    binning (device sort + one host sync) and the per-group layout run ONCE
-    here; ``__call__`` is pure kernel dispatch — no host sync, no per-frame
-    layout work.
+    (:351-369). This is that split for the queue: ``build_queue``'s
+    binning (device sort + one host sync) runs ONCE here; ``__call__`` is
+    pure fold dispatch — no host sync, no per-frame layout work.
     """
 
     def __init__(self, verts_norm, tris, n: int, k_chunk: int = 64,
                  interpret: bool = False):
         self.n = n
-        self.k_chunk = k_chunk
         self.interpret = interpret
-        coefs, ct, cn, cl, self.stats = build_queue(
+        self.coefs, self.row0, self.count, self.stats = build_queue(
             verts_norm, tris, n, k_chunk=k_chunk
-        )
-        self.groups, self.tiles_grp = _prepare_queue_groups(
-            coefs, np.asarray(ct), np.asarray(cn), np.asarray(cl), n, k_chunk
         )
 
     def __call__(self, perturb=None) -> jnp.ndarray:
-        """-> packed occupancy words [N, N, N//32] (async device dispatch)."""
-        return _run_queue_groups(
-            self.groups, self.tiles_grp, self.n, self.k_chunk,
-            interpret=self.interpret, perturb=perturb,
-        )
+        """-> packed occupancy words [N, N, N//32] (async device dispatch).
+
+        ``perturb``: optional f32 scalar added as ``coef + perturb * 1e-38``
+        — an exact f32 no-op that gives benchmark loops a carry dependence
+        without re-binning."""
+        coefs = self.coefs
+        if perturb is not None:
+            coefs = coefs + perturb * 1e-38
+        return run_queue(coefs, self.row0, self.count, self.n,
+                         interpret=self.interpret)
 
 
 def voxelize_parity_queue(
@@ -631,44 +438,33 @@ def voxelize_parity_queue(
     k_chunk: int = 64,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """Bin + run: the hi-res (>= 128^3) production parity voxelizer."""
+    """Bin + fold: the production parity voxelizer (any n % 32 == 0)."""
     assert n % 32 == 0, f"grid size must be a multiple of 32, got {n}"
     if tris.shape[0] == 0:
         return jnp.zeros((n, n, n // 32), dtype=jnp.int32)
-    coefs, chunk_tile, chunk_nsub, chunk_last, _ = build_queue(
-        verts_norm, tris, n, k_chunk=k_chunk
-    )
-    return voxelize_parity_queue_run(
-        coefs, np.asarray(chunk_tile), np.asarray(chunk_nsub),
-        np.asarray(chunk_last), n, k_chunk=k_chunk, interpret=interpret,
-    )
+    coefs, row0, count, _ = build_queue(verts_norm, tris, n, k_chunk=k_chunk)
+    return run_queue(coefs, row0, count, n, interpret=interpret)
 
 
 # ---- deforming-mesh path: device-only queue build ---------------------------
 
 def _assemble_window(phase_a_out, n: int, num_chunks: int, k_chunk: int,
-                     tile_lo, tile_hi):
-    """Assemble one tile window's queue from shared phase-A results.
+                     tile_lo, n_win: int):
+    """Assemble the queue of tiles [tile_lo, tile_lo + n_win) from shared
+    phase-A results (traced; ``tile_lo`` may be a shard_map axis value).
 
-    Traced helper: callers jit it (directly or per window — the expensive
-    sort in phase A is shared across windows).
-    Returns (coefs, chunk_tile, chunk_nsub, chunk_last, ok) — the prefetch
-    arrays are traced device values, which PrefetchScalarGridSpec accepts.
-    ``ok`` is False when the window's chunks exceed ``num_chunks`` OR the
-    overflow count exceeds phase A's ov_ids capacity (either way the queue
-    is truncated; grow and retry).
+    Returns (coefs, tile_row0, tile_count, ok) with rows local to the
+    window. ``ok`` is False when the window's chunks exceed ``num_chunks``
+    OR the overflow count exceeds phase A's ov_ids capacity (either way the
+    queue is truncated — every run is clamped inside the array; grow and
+    retry).
     """
-    ntx, nty = n // TILE_X, n // TILE_Y
-    n_tiles = ntx * nty
     coef, sorted_tris, starts, counts, ov_ids, n_ov = phase_a_out
     t_count = coef.shape[0]
+    counts_w = jax.lax.dynamic_slice(counts, (tile_lo,), (n_win,))
+    starts_w = jax.lax.dynamic_slice(starts[:-1], (tile_lo,), (n_win,))
 
-    tile_hi = n_tiles if tile_hi is None else tile_hi
-    tile_idx = jnp.arange(n_tiles, dtype=jnp.int32)
-    in_slab = (tile_idx >= tile_lo) & (tile_idx < tile_hi)
-    per_tile = jnp.where(
-        in_slab & ((counts > 0) | (n_ov > 0)), counts + n_ov, 0
-    )
+    per_tile = jnp.where((counts_w > 0) | (n_ov > 0), counts_w + n_ov, 0)
     cpt = (per_tile + k_chunk - 1) // k_chunk  # chunks per tile
     first_chunk = jnp.concatenate(
         [jnp.zeros((1,), cpt.dtype), jnp.cumsum(cpt)[:-1]]
@@ -681,27 +477,15 @@ def _assemble_window(phase_a_out, n: int, num_chunks: int, k_chunk: int,
     j = jnp.arange(num_chunks, dtype=jnp.int32)
     tile_of = jnp.searchsorted(bounds, j, side="right").astype(jnp.int32)
     valid_chunk = j < total_chunks
-    tile_of = jnp.where(valid_chunk, jnp.minimum(tile_of, n_tiles - 1),
-                        n_tiles - 1)
+    tile_of = jnp.where(valid_chunk, jnp.minimum(tile_of, n_win - 1),
+                        n_win - 1)
     within = j - first_chunk[tile_of]
-    remaining = per_tile[tile_of] - within * k_chunk
-    nsub = jnp.where(
-        valid_chunk,
-        (jnp.clip(remaining, 0, k_chunk) + SUB - 1) // SUB,
-        0,
-    ).astype(jnp.int32)
-    last = (valid_chunk & (within == cpt[tile_of] - 1)).astype(jnp.int32)
 
-    # slot -> row of [sorted_tris | ov_ids | sentinel]. All per-chunk values
-    # gather at chunk granularity and broadcast over the k_chunk axis: a
-    # slot-level gather costs ~10 ns/row (about 1.5 ms here) where the
-    # 64x-smaller chunk-level one is free. (A chunk-granular WINDOW gather
-    # — vmap(dynamic_slice) over per-chunk bases — was tried and is NOT
-    # cheaper: XLA TPU gathers cost per sliced ROW, not per offset, and it
-    # measured ~1.6 ms per window table vs 1.2 for the plain slot gather.)
+    # slot -> row of [sorted_tris | ov_ids | sentinel]; per-chunk values
+    # gather at chunk granularity and broadcast over the k_chunk axis
     s_total = sorted_tris.shape[0]
-    chunk_start = starts[:-1][tile_of]  # [num_chunks]
-    cnt = counts[tile_of][:, None]  # [num_chunks, 1]
+    chunk_start = starts_w[tile_of]  # [num_chunks]
+    cnt = counts_w[tile_of][:, None]  # [num_chunks, 1]
     kk = jnp.arange(k_chunk, dtype=jnp.int32)[None, :]
     t_idx = (within * k_chunk)[:, None] + kk  # [num_chunks, k_chunk]
     t_idx = jnp.where(valid_chunk[:, None], t_idx, -1)
@@ -721,57 +505,33 @@ def _assemble_window(phase_a_out, n: int, num_chunks: int, k_chunk: int,
         [coef, jnp.zeros((1, NCOEF), dtype=coef.dtype)], axis=0
     )
     coefs = coef_padded[jnp.where(tri_id < 0, t_count, tri_id)]
-    # rebase to the slab for the group runner; clamp padding chunks (which
-    # point at the global last tile) into the slab so their no-op RMW stays
-    # in bounds
-    tile_out = jnp.clip(
-        tile_of - tile_lo, 0, (tile_hi - tile_lo) - 1
-    ).astype(jnp.int32)
-    return coefs.reshape(num_chunks * k_chunk, NCOEF), tile_out, nsub, last, ok
+    cap_rows = num_chunks * k_chunk
+    row0 = jnp.minimum(first_chunk * k_chunk, cap_rows).astype(jnp.int32)
+    count = jnp.clip(per_tile, 0, cap_rows - row0).astype(jnp.int32)
+    return coefs.reshape(cap_rows, NCOEF), row0, count, ok
 
 
 OV_CAP_DEVICE = 512  # static overflow-list capacity of the device build
 
 
 @partial(jax.jit, static_argnames=("n", "num_chunks", "k_chunk", "max_span_x",
-                                   "max_span_y", "ov_cap"))
+                                   "max_span_y", "n_win", "ov_cap"))
 def _build_queue_device(verts_norm, tris, n: int, num_chunks: int,
                         k_chunk: int, max_span_x: int, max_span_y: int,
-                        tile_lo=0, tile_hi=None, ov_cap: int = OV_CAP_DEVICE):
-    """Fully-on-device queue build (no host sync) for per-frame rebinning.
+                        tile_lo=0, n_win: int | None = None,
+                        ov_cap: int = OV_CAP_DEVICE):
+    """Fully-on-device queue build (no host sync) for per-frame rebinning
+    of the tile window [tile_lo, tile_lo + n_win) (default: every tile).
 
     ``num_chunks`` is a static capacity (see :class:`DeformingVoxelizer`);
     frames whose queue exceeds it — or whose span-overflow triangle count
     exceeds ``ov_cap`` — flag via the checked ``ok`` word.
     """
+    if n_win is None:
+        n_win = (n // TILE_X) * (n // TILE_Y)
     pa = _queue_phase_a(verts_norm, tris, n, max_span_x, max_span_y,
                         ov_cap=ov_cap)
-    return _assemble_window(pa, n, num_chunks, k_chunk, tile_lo, tile_hi)
-
-
-@partial(jax.jit, static_argnames=("n", "num_chunks", "k_chunk", "max_span_x",
-                                   "max_span_y", "n_groups", "ov_cap"))
-def _build_queue_device_groups(verts_norm, tris, n: int, num_chunks: int,
-                               k_chunk: int, max_span_x: int,
-                               max_span_y: int, n_groups: int,
-                               ov_cap: int = OV_CAP_DEVICE):
-    """Device queue build for ``n_groups`` VMEM tile groups (hi-res grids).
-
-    Phase A (setup + sort) runs ONCE; each group's queue is assembled from
-    the shared sorted pairs over its tile window. ``num_chunks`` is the
-    uniform per-group capacity.
-    """
-    ntx, nty = n // TILE_X, n // TILE_Y
-    n_tiles = ntx * nty
-    tiles_grp = n_tiles // n_groups
-    pa = _queue_phase_a(verts_norm, tris, n, max_span_x, max_span_y,
-                        ov_cap=ov_cap)
-    return [
-        _assemble_window(
-            pa, n, num_chunks, k_chunk, g * tiles_grp, (g + 1) * tiles_grp
-        )
-        for g in range(n_groups)
-    ]
+    return _assemble_window(pa, n, num_chunks, k_chunk, tile_lo, n_win)
 
 
 def rest_mesh_spans(verts_norm, tris, n: int,
@@ -786,8 +546,6 @@ def rest_mesh_spans(verts_norm, tris, n: int,
     frames whose triangles outgrow the caps fall into the EXACT overflow
     path (appended to every tile) and, past ov_cap of them, flag ``ok``.
     """
-    from dxrvoxelizer_tpu.ops.geom import parity_tri_setup
-
     pt = parity_tri_setup(verts_norm, tris, n)
     x0, x1, y0, y1, valid = jax.device_get((
         jnp.ceil(pt.xmin), jnp.floor(pt.xmax),
@@ -812,77 +570,34 @@ class DeformingVoxelizer:
     The reference rebuilds nothing per frame (static AS) but re-voxelizes;
     the BASELINE.json deforming config re-bins too. The chunk capacity is
     sized from the rest mesh (x ``headroom``); a frame that overflows it
-    raises (grow and retry by constructing a new instance). Grids whose
-    output exceeds the VMEM budget (512^3+) split into tile groups: one
-    shared phase-A sort, one assembled queue + kernel launch per group.
+    raises when checked (grow and retry by constructing a new instance).
     """
 
     def __init__(self, verts_norm, tris, n: int, k_chunk: int = 64,
                  headroom: float = 1.5, interpret: bool = False):
-        ntx, nty = n // TILE_X, n // TILE_Y
-        n_tiles = ntx * nty
-        n_groups = _output_groups(n)
-        self.n_groups = n_groups
-        self.tiles_grp = n_tiles // n_groups
         # span caps from the rest mesh: the pair sort scales with
         # span_x*span_y*T candidate rows (see rest_mesh_spans)
         self.spans = rest_mesh_spans(verts_norm, tris, n)
-        _, ctile, _, _, stats = build_queue(
+        _, _, _, stats = build_queue(
             verts_norm, tris, n, k_chunk=k_chunk,
             max_span_x=self.spans[0], max_span_y=self.spans[1],
         )
-        if n_groups == 1:
-            cap = int(stats.real_chunks * headroom) + 8
-        else:
-            # uniform per-group capacity from the rest mesh's densest
-            # group (deformation moves triangles between groups, so the
-            # headroom must absorb cross-group drift too)
-            ct_h = np.asarray(ctile)[: stats.real_chunks]
-            per_group = np.bincount(
-                np.minimum(ct_h // self.tiles_grp, n_groups - 1),
-                minlength=n_groups,
-            )
-            cap = int(per_group.max() * headroom) + 8
+        cap = int(stats.real_chunks * headroom) + 8
         self.num_chunks = -(-cap // 128) * 128
         self.n = n
-        self.n_tiles = n_tiles
         self.k_chunk = k_chunk
         self.tris = tris
         self.interpret = interpret
 
     def __call__(self, verts_norm, check: bool = False):
         """Deformed vertices -> packed occupancy words [N,N,N//32]."""
-        if self.n_groups == 1:
-            coefs, tile_of, nsub, last, ok = _build_queue_device(
-                verts_norm, self.tris, self.n, self.num_chunks, self.k_chunk,
-                self.spans[0], self.spans[1],
-            )
-            if check and not bool(ok):  # host sync only when asked
-                raise RuntimeError(
-                    "deforming queue overflowed its capacity; rebuild with "
-                    "more headroom"
-                )
-            out = _queue_run_group(
-                coefs, tile_of, nsub, last, jnp.zeros((1,), jnp.int32),
-                self.n, self.k_chunk, self.n_tiles, static_trip=True,
-                interpret=self.interpret,
-            )
-            return _tiles_to_grid(out, self.n)
-        groups = _build_queue_device_groups(
+        coefs, row0, count, ok = _build_queue_device(
             verts_norm, self.tris, self.n, self.num_chunks, self.k_chunk,
-            self.spans[0], self.spans[1], self.n_groups,
+            self.spans[0], self.spans[1],
         )
-        outs = []
-        for g, (coefs, tile_of, nsub, last, ok) in enumerate(groups):
-            if check and not bool(ok):
-                raise RuntimeError(
-                    f"deforming queue group {g} overflowed its capacity; "
-                    "rebuild with more headroom"
-                )
-            outs.append(_queue_run_group(
-                coefs, tile_of, nsub, last,
-                jnp.asarray([g * self.tiles_grp], jnp.int32),
-                self.n, self.k_chunk, self.tiles_grp, static_trip=True,
-                interpret=self.interpret,
-            ))
-        return _tiles_to_grid(jnp.concatenate(outs, axis=0), self.n)
+        if check and not bool(ok):  # host sync only when asked
+            raise RuntimeError(
+                "deforming queue overflowed its capacity; rebuild with "
+                "more headroom"
+            )
+        return run_queue(coefs, row0, count, self.n, interpret=self.interpret)

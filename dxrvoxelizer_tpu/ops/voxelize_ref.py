@@ -9,9 +9,9 @@ Two inside/outside rules, mirroring SURVEY.md section 7:
   normal grid the reference writes (``float4(Normal, 1.0)``,
   DXRVoxelizer.hlsl:83-84).
 - :func:`voxelize_parity_ref` — axis-aligned column rays with
-  intersection-parity counting (watertight; the TPU-native default). This
-  oracle *counts* crossings per voxel; the production Pallas kernel folds
-  XOR masks — two independent reductions over identical per-triangle tests,
+  intersection-parity counting (watertight; the default). This oracle
+  *counts* crossings per voxel; the production work queue
+  (ops/voxelize_queue.py) folds XOR masks — two independent reductions over identical per-triangle tests,
   the "dual path" analog of the reference's Core/EZ A/B (SURVEY.md section 4).
 
 These are the correctness anchors: slow, obvious, and used to generate golden
@@ -125,9 +125,9 @@ def voxelize_raystab_radial_ref(
     - "radial" (default, the production gen-3 contract): barycentrics from
       the radial signed volumes — ``w_i = d . g_i``, ``den = (w0+w1)+w2``,
       ``nrm = normalize((w0 n0 + w1 n1 + w2 n2) / den)`` — the exact
-      expressions the winner-extraction kernel carries
-      in its in-slot finalize (raystab_pallas.stab_fold_extract2), so the fast
-      path matches bit-for-bit with NO per-ray table gather.
+      expressions the fold kernel carries in its in-strip finalize
+      (raystab_pallas.finish_channels), so the fast path matches
+      bit-for-bit (up to FMA contraction on the GPU, see chip_smoke.py).
     - "mt": the legacy mt_hit (u, v) interpolation, bit-identical to the
       Moller-Trumbore oracle's normals (used by the oracle-vs-oracle test).
     """
@@ -157,8 +157,8 @@ def voxelize_raystab_radial_ref(
         if normal_impl == "radial":
             dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
             gg0, gg1, gg2 = g0[idx], g1[idx], g2[idx]
-            # w / den / ns chains verbatim from the extraction kernel
-            # (raystab_pallas._extract_kernel2) — shared bit contract
+            # w / den / ns chains verbatim from the fold's finalize
+            # (raystab_pallas.finish_channels) — shared bit contract
             w0 = dx * gg0[:, 0] + dy * gg0[:, 1] + dz * gg0[:, 2]
             w1 = dx * gg1[:, 0] + dy * gg1[:, 1] + dz * gg1[:, 2]
             w2 = dx * gg2[:, 0] + dy * gg2[:, 1] + dz * gg2[:, 2]
@@ -169,9 +169,8 @@ def voxelize_raystab_radial_ref(
             nsz = w0 * n0i[:, 2] + w1 * n1i[:, 2] + w2 * n2i[:, 2]
             dn = jnp.where(den == 0.0, 1.0, den)
             nx, ny, nz = nsx / dn, nsy / dn, nsz / dn
-            # scalarized norm + dot chains, shared shape with the kernel's
-            # in-slot finalize (raystab_pallas._extract_kernel2) — Mosaic
-            # and XLA contract these FMA chains identically
+            # scalarized norm + dot chains, shared shape with the fold's
+            # finalize (raystab_pallas.finish_channels)
             ss = (nx * nx + ny * ny) + nz * nz
             ln = jnp.maximum(jnp.sqrt(ss), 1e-20)
             nx, ny, nz = nx / ln, ny / ln, nz / ln
@@ -234,7 +233,7 @@ def voxelize_parity_ref(
 
     Counts, per voxel column, the crossings strictly above each voxel center
     and takes the parity. Independent reduction from the production kernel's
-    XOR fold (see ops/voxelize_pallas.py) over the shared per-triangle setup.
+    XOR fold (see ops/voxelize_queue.py) over the shared per-triangle setup.
 
     ``x_slab``/``x_offset`` restrict computation to grid-x rows
     [x_offset, x_offset + x_slab) — the unit of multi-chip sharding

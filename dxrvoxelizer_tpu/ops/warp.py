@@ -2,8 +2,7 @@
 
 The regular-access building block of the shear-warp renderer
 (ops/raymarch_warp.py): resampling a 2D slab on a scaled/translated grid is
-two small dense matmuls with 2-tap interpolation matrices — MXU work, no
-gathers. Out-of-range taps get zero weight (outside the volume there is no
+two small dense matmuls with 2-tap interpolation matrices — no gathers. Out-of-range taps get zero weight (outside the volume there is no
 density), and the row-sum deficit is exposed so callers needing "outside
 == 1" semantics (light transmittance) can add the complement.
 """

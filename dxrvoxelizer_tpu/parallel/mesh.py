@@ -1,9 +1,10 @@
 """Device-mesh helpers.
 
-The reference is single-GPU (SURVEY.md section 2c); scale-out here is
-TPU-native: a 1-D ``jax.sharding.Mesh`` whose axis carries both the voxel
-x-slab sharding (voxelize) and the screen-row sharding (ray-march), with an
-``all_gather`` of the packed occupancy words between the passes riding ICI.
+The reference is single-GPU (SURVEY.md section 2c); scale-out here is a
+1-D ``jax.sharding.Mesh`` whose axis carries both the voxel tile-group
+sharding (voxelize) and the screen-row sharding (ray-march), with one
+``all_gather`` of the packed occupancy words between the passes. Cards
+joined all to all (NVLink) make a 1-D mesh the natural shape.
 """
 
 from __future__ import annotations

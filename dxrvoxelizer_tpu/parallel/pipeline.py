@@ -5,7 +5,7 @@
 frame (queue voxelize + shear-warp render) as ONE ``shard_map``-ped jitted
 program over a 1-D device mesh (parallel/shard.py). The reference app has no
 multi-GPU analog (SURVEY.md section 2c: single-GPU, single-process); this is
-the TPU-native scale-out of its frame loop (DXRVoxelizer.cpp:258-270).
+the scale-out of its frame loop (DXRVoxelizer.cpp:258-270).
 
 The shear-warp compile-time statics (view major axis/flip/swap, intermediate
 resolution, light axis) depend on the camera: an orbiting camera crossing a
@@ -50,7 +50,7 @@ class ShardedFramePipeline:
     def __init__(self, cfg, mesh_buffers, chips: int,
                  vox_impl: str = "auto", render_impl: str = "warp",
                  deforming: bool = False, k_chunk: int = 64,
-                 interpret: bool | None = None):
+                 interpret: bool = False):
         if cfg.inside_mode not in ("parity", "raystab"):
             raise ValueError(
                 "-chips supports the parity and raystab inside modes "
@@ -77,8 +77,6 @@ class ShardedFramePipeline:
         self.deforming = deforming
         self.k_chunk = k_chunk
         self.device_mesh = make_device_mesh(chips)
-        if interpret is None:
-            interpret = jax.default_backend() == "cpu"
         self.interpret = interpret
         # per-device queue capacity from the rest mesh (deformation head-
         # room absorbed by the DeformingVoxelizer sizing rule); parity only
@@ -197,8 +195,8 @@ class ShardedFramePipeline:
         )
         if self.refitter is not None and not self._refit_checked:
             # validate the deformation contract on the first refit frame
-            # (one host sync; ADVICE r4 — the sharded frame itself
-            # refits with no check every frame)
+            # (one host sync — the sharded frame itself refits with no
+            # check every frame)
             from dxrvoxelizer_tpu.ops.raystab_tiled import (
                 check_deform_contract,
             )

@@ -1,8 +1,8 @@
-"""Multi-chip ray-stab query — the DispatchRays analog sharded over ICI.
+"""Multi-chip ray-stab query — the DispatchRays analog sharded over cards.
 
-The gen-4 query (ops/raystab_fast) streams per-class strip blocks through
-one fused Pallas kernel; strips are independent, so the kernel's leading
-strip axis shards cleanly over a 1-D device mesh: each chip folds 1/N of
+The binned query (ops/raystab_fast) runs per-class strip blocks through
+one fused fold + extraction; strips are independent, so the leading
+strip axis shards cleanly over a 1-D device mesh: each card folds 1/N of
 every capacity class (and of the shared overflow pass), then the cheap
 sort-merge runs on the gathered winner streams. Per-frame cross-chip
 traffic is the winner streams themselves (t, id, 4 channels — ~9 MB at
@@ -16,7 +16,7 @@ zero channels) and their output slots are sliced off before the sort, so
 the sharded query is bit-identical to the single-device one.
 
 The reference app is single-GPU (SURVEY.md section 2c); this is the
-TPU-native scale-out of its DispatchRays(64, 64*64, 1) voxelize dispatch
+scale-out of its DispatchRays(64, 64*64, 1) voxelize dispatch
 (Voxelizer.cpp:367-368).
 """
 
@@ -253,7 +253,7 @@ def sharded_frame_raystab(
         )
         ov_k = table_k(accel.ov_dense[1]) if accel.ov_dense else 0
     render = _make_band_renderer(
-        mesh, n, width, height, statics, interpret, render_impl,
+        mesh, n, width, height, statics, render_impl,
         n_samples, n_light, point_light,
     )
     rep = NamedSharding(mesh, P())
@@ -283,7 +283,7 @@ def sharded_frame_raystab(
 
 
 def _make_band_renderer(mesh: Mesh, n: int, width: int, height: int,
-                        statics: tuple, interpret: bool, render_impl: str,
+                        statics: tuple, render_impl: str,
                         n_samples: int, n_light: int, point_light: bool):
     """shard_map-wrapped screen-band renderer shared by the raystab frame
     builders: each device renders its horizontal band from the replicated
@@ -298,7 +298,7 @@ def _make_band_renderer(mesh: Mesh, n: int, width: int, height: int,
     band = height // n_dev
 
     if render_impl == "warp":
-        (waxis, wflip, wswap, m, res_win, l_axis, l_flip, l_mode, ss,
+        (waxis, wflip, wswap, m, l_axis, l_flip, l_mode, ss,
          l_d0) = statics
 
         def render_band(density, s2l, eye, light, clear):
@@ -309,7 +309,7 @@ def _make_band_renderer(mesh: Mesh, n: int, width: int, height: int,
             )
             return rw._shearwarp_core(
                 density, lv, s2l, eye, clear, n, m, width, band,
-                waxis, wflip, wswap, not interpret, res_win=res_win,
+                waxis, wflip, wswap,
                 y_off=(d * band).astype(jnp.float32).reshape(()),
                 ss=ss,
             )
@@ -383,7 +383,7 @@ def sharded_frame_raystab_deforming(
         ov_k = table_k(acc0.ov_dense[1]) if acc0.ov_dense else 0
     state = refitter.device_state()
     render = _make_band_renderer(
-        mesh, n, width, height, statics, interpret, render_impl,
+        mesh, n, width, height, statics, render_impl,
         n_samples, n_light, point_light,
     )
     rep = NamedSharding(mesh, P())

@@ -5,8 +5,8 @@ Design (SURVEY.md section 5 "distributed communication backend"):
 - **voxelize**: data-parallel over voxel columns — each device computes the
   occupancy of its grid-x slab (triangles replicated; the parity test is
   embarrassingly parallel over columns);
-- **grid exchange**: one ``all_gather`` of the slab occupancies over ICI —
-  the only collective in the frame;
+- **grid exchange**: one ``all_gather`` of the slab occupancies — the only
+  collective in the frame;
 - **ray-march**: data-parallel over screen rows — each device renders a
   horizontal band of the image from the gathered grid.
 
@@ -58,7 +58,7 @@ def sharded_frame(
             verts_norm, tris, n=n, x_slab=slab, x_offset=d * slab
         )
 
-        # the frame's one collective: assemble the full grid over ICI
+        # the frame's one collective: assemble the full grid
         occ_full = jax.lax.all_gather(occ_local, axis, axis=0, tiled=True)
         density = occ_full.astype(jnp.float32)
 
@@ -141,8 +141,8 @@ def frame_statics(consts, width: int, height: int, m_cap: int = 128,
                   render_ss: int = 1):
     """Host-derived compile-time statics of the fast multi-chip frame.
 
-    ``(warp axis, flip, swap, intermediate m, resolver window, light axis,
-    light flip, light mode, render ss, light d0)`` — hashable; cache
+    ``(warp axis, flip, swap, intermediate m, light axis, light flip,
+    light mode, render ss, light d0)`` — hashable; cache
     compiled frames keyed on this tuple and rebuild when an orbiting camera
     crosses a major-axis boundary (parallel/pipeline.py does).
     ``point_light`` selects the point-light field mode (needs ``grid_size``
@@ -153,7 +153,7 @@ def frame_statics(consts, width: int, height: int, m_cap: int = 128,
     """
     from dxrvoxelizer_tpu.ops import raymarch_warp as rw
 
-    waxis, wflip, wswap, m, res_win = rw.shearwarp_statics(
+    waxis, wflip, wswap, m = rw.shearwarp_statics(
         consts.screen_to_local, consts.local_space_eye_pt, width, height,
         m_cap=m_cap,
     )
@@ -176,8 +176,8 @@ def frame_statics(consts, width: int, height: int, m_cap: int = 128,
     else:
         l_axis, l_flip = rw.light_statics(consts.local_space_light_pt)
         l_mode = "dir"
-    return (waxis, wflip, wswap, m, res_win, l_axis, l_flip, l_mode,
-            int(render_ss), l_d0)
+    return (waxis, wflip, wswap, m, l_axis, l_flip, l_mode, int(render_ss),
+            l_d0)
 
 
 def sharded_frame_fast(
@@ -196,14 +196,15 @@ def sharded_frame_fast(
     n_light: int = 32,
     point_light: bool = False,
 ):
-    """Production multi-chip frame: Pallas kernels under ``shard_map``.
+    """Production multi-chip frame: the work queue and the shear-warp under
+    ``shard_map``.
 
     - voxelize: each device runs the device-layout queue build restricted to
-      its TILE GROUP plus the work-queue kernel (ops/voxelize_queue.py) —
-      binning is embarrassingly parallel, so triangles are replicated and no
+      its TILE GROUP plus the queue fold (ops/voxelize_queue.py) — binning
+      is embarrassingly parallel, so triangles are replicated and no
       collective runs until...
-    - grid exchange: ONE ``all_gather`` of the per-group packed words over
-      ICI (2 MB at 256^3);
+    - grid exchange: ONE ``all_gather`` of the per-group packed words
+      (2 MB at 256^3);
     - render: each device shear-warps its horizontal screen band from the
       gathered grid (compositing over the small intermediate is replicated;
       the per-pixel resolve is band-local).
@@ -213,8 +214,8 @@ def sharded_frame_fast(
     FrameConstants); a camera crossing a major-axis boundary needs a
     rebuild — :class:`~dxrvoxelizer_tpu.parallel.pipeline.
     ShardedFramePipeline` re-derives them per frame and caches compiled
-    frames per orientation. ``interpret`` runs the Pallas kernels in
-    interpret mode (the CPU-mesh dry-run configuration).
+    frames per orientation. ``interpret`` runs the kernels in interpret
+    mode (tests on a CPU mesh); otherwise ops/route.py picks the fold.
 
     ``render_impl``: "warp" (shear-warp, orientation statics required) or
     "gather" (the loop-free gather ray-marcher — orientation-free, so
@@ -223,21 +224,11 @@ def sharded_frame_fast(
     """
     from dxrvoxelizer_tpu.ops.packing import unpack_bits_z
     from dxrvoxelizer_tpu.ops import raymarch_warp as rw
-    from dxrvoxelizer_tpu.ops.voxelize_queue import (
-        TILE_X,
-        TILE_Y,
-        _build_queue_device,
-        _queue_run_group,
-        _tiles_to_grid,
-    )
 
     (axis,) = mesh.axis_names
     n_dev = mesh.devices.size
-    ntx, nty = n // TILE_X, n // TILE_Y
-    n_tiles = ntx * nty
-    assert n_tiles % n_dev == 0, f"{n_tiles} tiles not divisible by {n_dev}"
     assert height % n_dev == 0, f"height {height} not divisible by {n_dev}"
-    tpd = n_tiles // n_dev
+    vox_group = _group_voxelizer(mesh, n, num_chunks_cap, k_chunk, interpret)
     band = height // n_dev
 
     if render_impl == "warp":
@@ -247,7 +238,7 @@ def sharded_frame_fast(
                 sample_consts, width, height, point_light=point_light,
                 grid_size=n,
             )
-        (waxis, wflip, wswap, m, res_win, l_axis, l_flip, l_mode, ss,
+        (waxis, wflip, wswap, m, l_axis, l_flip, l_mode, ss,
          l_d0) = statics
 
         def render_band(d, density, s2l, eye, light, clear):
@@ -257,7 +248,7 @@ def sharded_frame_fast(
             )
             return rw._shearwarp_core(
                 density, lv, s2l, eye, clear, n, m, width, band,
-                waxis, wflip, wswap, not interpret, res_win=res_win,
+                waxis, wflip, wswap,
                 y_off=(d * band).astype(jnp.float32).reshape(()),
                 ss=ss,
             )
@@ -277,19 +268,7 @@ def sharded_frame_fast(
 
     def frame(verts_norm, tris, s2l, eye, light, clear):
         d = jax.lax.axis_index(axis)
-        lo = d * tpd
-
-        coefs, tile_of, nsub, last, _ok = _build_queue_device(
-            verts_norm, tris, n, num_chunks_cap, k_chunk, 4, 8,
-            tile_lo=lo, tile_hi=lo + tpd,
-        )
-        group = _queue_run_group(
-            coefs, tile_of, nsub, last, lo.reshape(1), n, k_chunk, tpd,
-            static_trip=True, interpret=interpret,
-        )
-        # the frame's one collective: assemble all tile groups over ICI
-        tiles_all = jax.lax.all_gather(group, axis, axis=0, tiled=True)
-        words = _tiles_to_grid(tiles_all, n)
+        words = vox_group(verts_norm, tris)
         density = unpack_bits_z(words, n).astype(jnp.float32)
         return render_band(d, density, s2l, eye, light, clear)
 
@@ -314,6 +293,41 @@ def sharded_frame_fast(
     return run
 
 
+def _group_voxelizer(mesh: Mesh, n: int, num_chunks_cap: int,
+                     k_chunk: int, interpret: bool):
+    """The per-device voxelize body of the sharded frames (call it inside
+    ``shard_map``): build this device's TILE GROUP queue fully on device,
+    fold it, and ``all_gather`` the groups -> packed words [N, N, N//32],
+    replicated."""
+    from dxrvoxelizer_tpu.ops.voxelize_queue import (
+        TILE_X,
+        TILE_Y,
+        _build_queue_device,
+        _fold_for,
+        _tiles_to_grid,
+    )
+
+    (axis,) = mesh.axis_names
+    n_dev = mesh.devices.size
+    n_tiles = (n // TILE_X) * (n // TILE_Y)
+    assert n_tiles % n_dev == 0, f"{n_tiles} tiles not divisible by {n_dev}"
+    tpd = n_tiles // n_dev
+    fold = _fold_for(interpret)
+
+    def vox(verts_norm, tris):
+        lo = jax.lax.axis_index(axis) * tpd
+        coefs, row0, count, _ok = _build_queue_device(
+            verts_norm, tris, n, num_chunks_cap, k_chunk, 4, 8,
+            tile_lo=lo, n_win=tpd,
+        )
+        group = fold(coefs, row0, count, lo, n)
+        # the frame's one collective: assemble all tile groups
+        tiles_all = jax.lax.all_gather(group, axis, axis=0, tiled=True)
+        return _tiles_to_grid(tiles_all, n)
+
+    return vox
+
+
 def sharded_voxelize(
     mesh: Mesh,
     n: int,
@@ -326,44 +340,16 @@ def sharded_voxelize(
     Returns a jitted ``vox(verts_norm, tris) -> packed words [N,N,N//32]``
     (replicated). Each device builds the queue slice for its contiguous
     tile group fully on device (no host sync — deforming meshes re-bin
-    every frame) and runs the work-queue kernel; the only cross-chip
-    traffic is one ``all_gather`` of the packed tile outputs over ICI
-    (2 MB at 256^3). Bit-identical to the single-chip queue kernel.
+    every frame) and folds it; the only cross-chip traffic is one
+    ``all_gather`` of the packed tile outputs (2 MB at 256^3).
+    Bit-identical to the single-chip queue.
 
     ``num_chunks_cap`` is the static per-device queue capacity: frames
     whose densest tile group exceeds it produce truncated queues — size it
     from the rest mesh like ops/voxelize_queue.DeformingVoxelizer does
-    (parallel/pipeline.py sizes it with the same rule).
+    (parallel/pipeline.py sizes it with :func:`queue_capacity`).
     """
-    from dxrvoxelizer_tpu.ops.voxelize_queue import (
-        TILE_X,
-        TILE_Y,
-        _build_queue_device,
-        _queue_run_group,
-        _tiles_to_grid,
-    )
-
-    (axis,) = mesh.axis_names
-    n_dev = mesh.devices.size
-    ntx, nty = n // TILE_X, n // TILE_Y
-    n_tiles = ntx * nty
-    assert n_tiles % n_dev == 0, f"{n_tiles} tiles not divisible by {n_dev}"
-    tpd = n_tiles // n_dev
-
-    def vox(verts_norm, tris):
-        d = jax.lax.axis_index(axis)
-        lo = d * tpd
-        coefs, tile_of, nsub, last, _ok = _build_queue_device(
-            verts_norm, tris, n, num_chunks_cap, k_chunk, 4, 8,
-            tile_lo=lo, tile_hi=lo + tpd,
-        )
-        group = _queue_run_group(
-            coefs, tile_of, nsub, last, lo.reshape(1), n, k_chunk, tpd,
-            static_trip=True, interpret=interpret,
-        )
-        tiles_all = jax.lax.all_gather(group, axis, axis=0, tiled=True)
-        return _tiles_to_grid(tiles_all, n)
-
+    vox = _group_voxelizer(mesh, n, num_chunks_cap, k_chunk, interpret)
     shmapped = jax.shard_map(
         vox, mesh=mesh, in_specs=(P(), P()), out_specs=P(),
         check_vma=False,
@@ -391,15 +377,10 @@ def queue_capacity(verts_norm, tris, n: int, n_groups: int,
 
     n_tiles = (n // TILE_X) * (n // TILE_Y)
     tiles_grp = n_tiles // n_groups
-    _, ctile, _, _, stats = build_queue(verts_norm, tris, n, k_chunk=k_chunk)
-    if n_groups == 1:
-        cap = int(stats.real_chunks * headroom) + 8
-    else:
-        ct_h = np.asarray(ctile)[: stats.real_chunks]
-        per_group = np.bincount(
-            np.minimum(ct_h // tiles_grp, n_groups - 1), minlength=n_groups
-        )
-        cap = int(per_group.max() * headroom) + 8
+    _, row0, count, _ = build_queue(verts_norm, tris, n, k_chunk=k_chunk)
+    chunks = (np.asarray(count) + k_chunk - 1) // k_chunk  # per tile
+    per_group = chunks.reshape(n_groups, tiles_grp).sum(axis=1)
+    cap = int(per_group.max() * headroom) + 8
     return -(-cap // 128) * 128
 
 

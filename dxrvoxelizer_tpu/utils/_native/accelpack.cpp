@@ -2,7 +2,7 @@
 //
 // The reference delegates its AS build to the driver's native BVH builder
 // (Voxelizer.cpp:264-326 BuildRaytracingAccelerationStructure); this is the
-// TPU framework's equivalent native component: the greedy packing of
+// engine's equivalent native component: the greedy packing of
 // direction-cell ray groups into 128-lane strips with per-strip candidate
 // unions (the irregular sequential walk in
 // ops/raystab_fast._make_packs_py, which is the behavioral reference —
@@ -388,7 +388,7 @@ int64_t accelpack_raytab_rcap(void* handle) {
     auto* st = static_cast<RaytabState*>(handle);
     int64_t m = 0;
     for (int64_t c : st->counts) m = m > c ? m : c;
-    int64_t cap = ((m + 7) / 8) * 8;  // pad to the 8-sublane quantum
+    int64_t cap = ((m + 7) / 8) * 8;  // pad to a multiple of 8
     return cap < 8 ? 8 : cap;
 }
 

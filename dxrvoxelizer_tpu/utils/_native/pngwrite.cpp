@@ -1,4 +1,4 @@
-// Native PNG encoder — the TPU build's stb_image_write analog.
+// Native PNG encoder — the stb_image_write analog.
 //
 // The reference vendors stb_image_write for its F11 screenshot path
 // (reference: Common/stb_image_write.h, DXRVoxelizer.cpp:531-551). This is

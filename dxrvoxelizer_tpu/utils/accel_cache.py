@@ -3,7 +3,7 @@
 The reference builds its BLAS/TLAS once per geometry at init and ships
 precompiled shader blobs next to the app (Voxelizer.cpp:264-326; the dxc
 offline-compile rule in DXRVoxelizer.vcxproj:169-189) — init cost is paid
-once, offline where possible. The TPU analog: the gen-2..7 accel is a pure
+once, offline where possible. The analog here: the gen-2..7 accel is a pure
 function of (geometry bytes, grid size, cubemap ladder, span), and its
 binning + packing half (ops/raystab_fast.build_raystab_compact2) costs
 seconds of host work at 256^3. So cache the COMPACT product on disk keyed
@@ -17,7 +17,7 @@ stores the compact id tables instead (~12x smaller: 4 B ids vs 96 B
 coefficient+normal rows) and is backend-independent — the binning always
 runs on host CPU and the backend-sensitive coefficient values are computed
 at assembly time on the current default backend, so one cache entry serves
-CPU tests and TPU runs alike.
+CPU tests and GPU runs alike.
 """
 
 from __future__ import annotations
@@ -38,11 +38,10 @@ _FORMAT = 7  # bump when RaystabCompact2's layout or packing contract
 
 
 def default_cache_dir() -> str:
+    from dxrvoxelizer_tpu.utils.backend import CACHE_ROOT
+
     return os.environ.get(
-        "DXRVOX_ACCEL_CACHE",
-        os.path.join(
-            os.path.expanduser("~"), ".cache", "dxrvoxelizer_tpu", "accel"
-        ),
+        "DXRVOX_ACCEL_CACHE", os.path.join(CACHE_ROOT, "accel")
     )
 
 

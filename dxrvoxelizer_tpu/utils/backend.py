@@ -1,15 +1,23 @@
-"""Backend selection with a fallback ladder.
+"""Backend selection and the on-disk caches' home.
 
 The reference tries discrete GPU -> UMA -> WARP software rasterizer at device
-creation (DXRVoxelizer.cpp:89-128, 590-636). TPU analog: prefer the TPU
-backend, fall back to CPU with a warning — same spirit: the app always comes
-up, possibly slower.
+creation (DXRVoxelizer.cpp:89-128, 590-636). Here the accelerator is the
+default and the CPU runs only when asked for (``-warp``/``-cpu``, or
+``JAX_PLATFORMS=cpu``): a missing accelerator is an error, never a silent
+CPU fallback.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+
+# fixed home of every on-disk cache (compile cache, ray tables, accels):
+# inside the checkout, listed in .gitignore
+CACHE_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".cache",
+)
 
 
 def _host_cache_key() -> str:
@@ -35,6 +43,9 @@ def _host_cache_key() -> str:
     return hashlib.sha1(sig.encode()).hexdigest()[:10]
 
 
+_FILTERING = False
+
+
 def filter_benign_aot_noise() -> None:
     """Drop XLA's known-benign CPU AOT feature-mismatch log from stderr.
 
@@ -48,6 +59,10 @@ def filter_benign_aot_noise() -> None:
     """
     import threading
 
+    global _FILTERING
+    if _FILTERING:  # one pump per process (the app may run many times)
+        return
+    _FILTERING = True
     real = os.dup(2)
     r, w = os.pipe()
     os.dup2(w, 2)
@@ -97,54 +112,50 @@ def filter_benign_aot_noise() -> None:
     atexit.register(restore)
 
 
-def enable_compile_cache(cache_dir: str | None = None) -> str | None:
-    """Enable JAX's persistent compilation cache (opt-out via env).
+def enable_compile_cache() -> str:
+    """Enable JAX's persistent compilation cache; returns its directory.
 
-    Remote-TPU compiles of the big Pallas graphs take 20-120 s each; the
-    on-disk cache makes every process after the first skip them (the
-    shader-blob cache analog — the reference ships precompiled .cso blobs,
-    XUSG ShaderLib loads them, SURVEY.md §2b). Set
-    ``DXRVOX_NO_COMPILE_CACHE=1`` to disable; returns the directory in use
-    or None.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX keeps the cache there
+    on its own and nothing is set here. Otherwise the cache lives at a
+    fixed directory inside the checkout (the precompiled-shader analog:
+    the reference ships .cso blobs, SURVEY.md section 2b); CPU executables
+    go to a per-host-ISA subdirectory (_host_cache_key). Call after
+    :func:`select_backend` and before the first compile.
     """
-    if os.environ.get("DXRVOX_NO_COMPILE_CACHE"):
-        return None
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
 
-    if cache_dir is None:
-        cache_dir = os.environ.get("DXRVOX_COMPILE_CACHE") or os.path.join(
-            os.path.expanduser("~"), ".cache", "dxrvoxelizer_tpu", "xla",
-            _host_cache_key(),
-        )
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception as e:  # cache is an optimization, never fatal
-        print(f"dxrvoxelizer_tpu: compile cache unavailable ({e})",
-              file=sys.stderr)
-        return None
+    from dxrvoxelizer_tpu.ops import route
+
+    cache_dir = os.path.join(CACHE_ROOT, "xla")
+    if route.platform() == "cpu":
+        cache_dir = os.path.join(cache_dir, "cpu-" + _host_cache_key())
+    os.makedirs(cache_dir, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return cache_dir
 
 
 def select_backend(prefer: str = "default") -> str:
-    """Pick and activate a backend; returns the platform name in use."""
+    """Activate a backend; returns the platform name in use.
+
+    ``prefer="cpu"`` selects the CPU (the reference's -warp). Otherwise the
+    default backend must be an accelerator, unless the CPU was chosen
+    explicitly through the ``jax_platforms`` setting (``JAX_PLATFORMS=cpu``)
+    — finding no accelerator raises instead of falling back.
+    """
     import jax
 
     if prefer == "cpu":
         jax.config.update("jax_platforms", "cpu")
         return "cpu"
-    try:
-        devs = jax.devices()
-        if devs:
-            return devs[0].platform
-    except RuntimeError as e:  # no accelerator: the WARP-style fallback
-        print(
-            f"dxrvoxelizer_tpu: accelerator unavailable ({e}); "
-            "falling back to CPU",
-            file=sys.stderr,
+    platform = jax.devices()[0].platform
+    if platform == "cpu" and (jax.config.jax_platforms or "") != "cpu":
+        raise RuntimeError(
+            "dxrvoxelizer_tpu: no accelerator found; run with -warp (or "
+            "JAX_PLATFORMS=cpu) to use the CPU"
         )
-        jax.config.update("jax_platforms", "cpu")
-        return "cpu"
-    return "cpu"
+    return platform

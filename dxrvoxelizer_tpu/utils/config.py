@@ -32,9 +32,9 @@ class VoxelizerConfig:
     inside_threshold: float = 0.12
     clear_color: tuple[float, float, float] = (0.0, 0.2, 0.4)
     light_pt: tuple[float, float, float] = (-10.0, 45.0, -75.0)  # Voxelizer.cpp:93
-    # inside-test mode: "parity" (axis-parity fill; watertight, the TPU-native
-    # default per BASELINE.json) or "raystab" (the reference's radial
-    # back-face rule, for reference-parity validation).
+    # inside-test mode: "parity" (axis-parity fill; watertight, the default
+    # per BASELINE.json) or "raystab" (the reference's radial back-face
+    # rule, for reference-parity validation).
     inside_mode: str = "parity"
     backend: str = "default"  # "default" | "cpu" (the -warp analog)
     # texture emulation switches (Content/SharedConst.h:5-6): show_mip
@@ -49,10 +49,9 @@ class VoxelizerConfig:
     # z-LERPed so every sample is fully trilinear like the reference's
     # 128-step march (PSRayCast.hlsl:117-145). DEFAULT 2 (the -hq mode,
     # which also selects the reference-step light sweep): the reference's
-    # quality IS its default, and the measured cost is ~0.2 ms on the
-    # 16.7 ms 1080p frame budget for a 4x accuracy win (p99 u8 error
-    # 9-15 vs 34-41 — docs/RENDER_QUALITY.md). -fast restores ss=1 +
-    # the per-slab recurrence light sweep (the speed mode).
+    # quality IS its default, a 4x accuracy win (p99 u8 error 9-15 vs
+    # 34-41 — docs/RENDER_QUALITY.md). -fast restores ss=1 + the
+    # per-slab recurrence light sweep (the speed mode).
     render_ss: int = 2
     # the reference's _POINT_LIGHT_ compile branch (PSRayCast.hlsl:151-154):
     # per-sample light direction toward the light POINT instead of the
@@ -90,8 +89,21 @@ class VoxelizerConfig:
         return dataclasses.replace(self, **kw)
 
 
+# every flag the app understands (parse_args + app/main._parse_extras):
+# a '/'-prefixed argument is a flag only when it names one of these, so
+# absolute paths (``-mesh /data/x.obj``) are values
+KNOWN_FLAGS = frozenset({
+    "warp", "cpu", "uma", "mesh", "grid", "width", "height", "inside",
+    "showmip", "subdiv", "usemutex", "noaccelcache", "pointlight",
+    "normals", "quality", "deformpad", "deformdirs", "hq", "fast",
+    "frames", "out", "savegrid", "noorbit", "voximpl", "renderimpl",
+    "timings", "ab", "deform", "interactive", "loadgrid", "profile",
+    "chips", "preview",
+})
+
+
 def parse_args(argv: list[str]) -> VoxelizerConfig:
-    """Parse reference-style CLI flags plus TPU-build extensions."""
+    """Parse reference-style CLI flags plus this engine's extensions."""
     cfg = VoxelizerConfig()
     kw: dict = {}
 
@@ -103,7 +115,7 @@ def parse_args(argv: list[str]) -> VoxelizerConfig:
             return False
         nxt = argv[i + 1]
         if nxt.startswith("/"):
-            return False
+            return nxt[1:].lower() not in KNOWN_FLAGS
         # a leading '-' only counts as a value if numeric (DXRVoxelizer.cpp:387-391)
         if nxt.startswith("-") and not (len(nxt) > 1 and (nxt[1].isdigit() or nxt[1] == ".")):
             return False
@@ -116,7 +128,7 @@ def parse_args(argv: list[str]) -> VoxelizerConfig:
         if is_flag(a, "warp") or is_flag(a, "cpu"):
             kw["backend"] = "cpu"
         elif is_flag(a, "uma"):
-            pass  # adapter preference: meaningless on TPU; accepted for parity
+            pass  # adapter preference: no analog here; accepted for parity
         elif is_flag(a, "mesh"):
             if has_value(i):
                 i += 1

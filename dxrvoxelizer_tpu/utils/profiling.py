@@ -2,7 +2,7 @@
 
 The reference ships PIX hooks it never calls and shows only a 1 Hz FPS title
 (DXRVoxelizer.cpp:553-584). We do better: named per-pass scopes that land in
-XLA/TPU profiler traces, a wall-clock pass timer with device sync, and a
+JAX profiler traces, a wall-clock pass timer with device sync, and a
 frame-stats aggregator the app prints at 1 Hz.
 """
 
@@ -57,7 +57,7 @@ class PassTimers:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Capture a TPU profiler trace for the enclosed frames
+    """Capture a JAX profiler trace of the enclosed frames
     (``tensorboard --logdir`` to view)."""
     jax.profiler.start_trace(log_dir)
     try:

@@ -16,7 +16,7 @@ from dxrvoxelizer_tpu.utils.accel_cache import (
     load_compact2,
     save_compact2,
 )
-from tests.meshes import icosphere_mesh
+from meshes import icosphere_mesh
 
 
 def _near_origin_soup(nt=300, seed=11):

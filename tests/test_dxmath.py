@@ -109,7 +109,7 @@ def test_dispatch_2d_to_3d_reconstruction_identity():
     """The reference folds its 3D voxel dispatch into (N, N*N, 1) because
     the DXR fallback layer lacks a depth dimension, then reconstructs
     index.z = y // N; y %= N (DXRVoxelizer.hlsl:64-67, Voxelizer.cpp:367).
-    The TPU build never folds (Pallas grids are index math), but the
+    This engine never folds (kernel grids are index math), but the
     identity the reference relies on must hold for every voxel."""
     n = 64
     x = np.arange(n)

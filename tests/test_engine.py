@@ -1,6 +1,7 @@
 """Engine (EZ tier), core pipeline, CLI app, and image IO tests."""
 
 import numpy as np
+import pytest
 
 from dxrvoxelizer_tpu.app.main import main
 from dxrvoxelizer_tpu.core import FRAME_COUNT, FramePipeline, voxelize
@@ -11,7 +12,7 @@ from dxrvoxelizer_tpu.models.scene import Scene
 from dxrvoxelizer_tpu.utils.config import VoxelizerConfig, parse_args
 from dxrvoxelizer_tpu.utils.image import read_png, to_u8, write_png
 from dxrvoxelizer_tpu.utils.objloader import ObjMesh
-from tests.meshes import tetrahedron_mesh
+from meshes import tetrahedron_mesh
 
 
 def _tet_scene():
@@ -79,7 +80,6 @@ def test_frame_pipeline_static_builds_once(monkeypatch):
     once and every frame only dispatches the kernel — the reference's
     build-AS-once (Voxelizer.cpp:264-326) vs per-frame DispatchRays-only
     (:351-369) split. Round-3 verdict finding #2."""
-    import dxrvoxelizer_tpu.core.pipeline as cp
     import dxrvoxelizer_tpu.ops.voxelize_queue as vq
     from dxrvoxelizer_tpu.ops.packing import pack_bits_z
     from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
@@ -92,8 +92,7 @@ def test_frame_pipeline_static_builds_once(monkeypatch):
         return real_build(*a, **kw)
 
     monkeypatch.setattr(vq, "build_queue", counting_build)
-    # CPU CI: force the accelerated static path, run the kernel interpreted
-    monkeypatch.setattr(cp, "_pallas_ok", lambda n: True)
+    # run the Triton-route fold interpreted (the CPU product fold is jnp)
 
     class InterpStatic(vq.StaticVoxelizer):
         def __init__(self, verts, tris, n, **kw):
@@ -134,6 +133,28 @@ def test_cli_parse_reference_flags():
     assert (cfg.grid_size, cfg.width, cfg.height) == (128, 640, 360)
     assert parse_args([]).accel_cache is True
     assert parse_args(["-noaccelcache"]).accel_cache is False
+
+
+@pytest.mark.parametrize(
+    "argv,mesh,pos_scale,backend",
+    [
+        (["-mesh", "/abs/x.obj"], "/abs/x.obj", (0.0, 0.0, 0.0, 1.0),
+         "default"),
+        (["-mesh", "/abs/x.obj", "0", "0", "0", "1"], "/abs/x.obj",
+         (0.0, 0.0, 0.0, 1.0), "default"),
+        (["-mesh", "/abs/x.obj", "1", "-2", "0.5", "0.25", "/warp"],
+         "/abs/x.obj", (1.0, -2.0, 0.5, 0.25), "cpu"),
+        (["/mesh", "/abs/x.obj", "/grid", "32"], "/abs/x.obj",
+         (0.0, 0.0, 0.0, 1.0), "default"),
+        (["-mesh", "/warp"], "bunny.obj", (0.0, 0.0, 0.0, 1.0), "cpu"),
+    ],
+)
+def test_cli_absolute_mesh_path(argv, mesh, pos_scale, backend):
+    """A '/'-prefixed argument is a value unless it names a known flag."""
+    cfg = parse_args(argv)
+    assert cfg.mesh == mesh
+    assert cfg.pos_scale == pos_scale
+    assert cfg.backend == backend
 
 
 def test_app_main_end_to_end(tmp_path, reference_assets_available):
@@ -187,7 +208,7 @@ def test_app_loadgrid_roundtrip(tmp_path, monkeypatch):
 
     from dxrvoxelizer_tpu.app.main import main
     from dxrvoxelizer_tpu.utils.image import read_png
-    from tests.meshes import tetrahedron_mesh
+    from meshes import tetrahedron_mesh
     from dxrvoxelizer_tpu.utils import assets
 
     # point the asset loader at a temp OBJ of the tet
@@ -220,7 +241,7 @@ def test_parity_with_normals_matches_raystab_rgb():
     winner machinery); alpha must equal the parity occupancy."""
     import jax.numpy as jnp
 
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
     from dxrvoxelizer_tpu.models.mesh import MeshBuffers
     from dxrvoxelizer_tpu.utils.objloader import ObjMesh
 

@@ -1,8 +1,8 @@
 """Golden occupancy grids for the canonical scenes (bit-exactness CI).
 
 The goldens are 64^3 parity-mode packed grids produced by the counting
-oracle (CPU, f32); the Pallas kernel and the oracle must reproduce them
-bit-for-bit on every backend (BASELINE.json "bit-exact occupancy grids").
+oracle (CPU, f32); the work-queue voxelizer and the oracle must reproduce
+them bit-for-bit on every backend (BASELINE.json "bit-exact occupancy grids").
 Scene placements follow the reference launch scripts: bunny/dragon default,
 TuringBowl posScale (0, 2.8, 0, 0.03) (Bin/TuringBowl.bat).
 """
@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 
 from dxrvoxelizer_tpu.models.scene import Scene
-from dxrvoxelizer_tpu.ops.binning import voxelize_parity_binned
 from dxrvoxelizer_tpu.ops.packing import pack_bits_z
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
 from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
@@ -41,7 +40,9 @@ def test_oracle_matches_golden(reference_assets_available, name, ps, occupied):
 def test_binned_kernel_matches_golden_bunny(reference_assets_available):
     golden = np.load(GOLDENS / "bunny_64_parity.npy")
     scene = Scene.load(VoxelizerConfig(mesh="bunny.obj"))
-    words = voxelize_parity_binned(
+    from dxrvoxelizer_tpu.ops.voxelize_queue import voxelize_parity_queue
+
+    words = voxelize_parity_queue(
         scene.buffers.positions_norm, scene.buffers.tris, n=64, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(words), golden)
@@ -60,7 +61,7 @@ def test_golden_render_tet():
     from dxrvoxelizer_tpu.models.scene import Scene
     from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu.utils.objloader import ObjMesh
-    from tests.meshes import tetrahedron_mesh
+    from meshes import tetrahedron_mesh
 
     v, nrm, t = tetrahedron_mesh()
     mesh = ObjMesh(
@@ -85,7 +86,7 @@ def test_golden_render_tet():
 
 
 RENDER_BOUNDS = {
-    # measured vs the shader-exact TPU reference render at the default cap
+    # measured vs the shader-exact reference render at the default cap
     # (scripts/make_render_goldens.py, docs/RENDER_QUALITY.md), with margin:
     #            u8_mean  u8_p99  u8_max   (measured: 5.4/41/68, 5.7/39/61,
     "bunny": (8.0, 55.0, 150),           #            2.1/34/94)
@@ -108,7 +109,7 @@ def test_production_render_720p_vs_reference_golden(
 ):
     """Production-quality pin at production scale: the shear-warp renderer
     at 1280x720 vs the checked-in shader-exact reference render (generated
-    on TPU by scripts/make_render_goldens.py). Bounds are u8 mean / p99 /
+    by scripts/make_render_goldens.py). Bounds are u8 mean / p99 /
     max absolute error per channel."""
     from dxrvoxelizer_tpu.core.pipeline import VoxelGrid, render
     from dxrvoxelizer_tpu.models.camera import OrbitCamera

@@ -8,7 +8,7 @@ from dxrvoxelizer_tpu.models.camera import OrbitCamera
 from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
 from dxrvoxelizer_tpu.utils.objloader import ObjMesh
 from dxrvoxelizer_tpu.models.scene import Scene
-from tests.meshes import tetrahedron_mesh
+from meshes import tetrahedron_mesh
 
 
 def _tet_engine(**cfg_kw):
@@ -71,7 +71,7 @@ def test_engine_dual_pipeline_images_agree():
     Core/EZ equivalence (DXRVoxelizer.cpp:295-297,420-481)."""
     from dxrvoxelizer_tpu.ez import Engine
     from dxrvoxelizer_tpu.models.scene import Scene
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     v, nrm, t = icosphere_mesh(2, radius=0.6)
     world = np.asarray(v, np.float32) * 2.0 + np.array([0, 4, 0], np.float32)

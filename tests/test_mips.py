@@ -7,7 +7,7 @@ from dxrvoxelizer_tpu.core.pipeline import render, voxelize
 from dxrvoxelizer_tpu.models.mesh import MeshBuffers
 from dxrvoxelizer_tpu.ops.mips import downsample2, generate_mips, mip_level
 from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
-from tests.meshes import tetrahedron_mesh
+from meshes import tetrahedron_mesh
 
 
 def _tet_buffers():

@@ -165,11 +165,21 @@ def test_turing_bowl_counts(reference_assets_available):
     np.testing.assert_allclose(lens[lens > 0], 1.0, atol=1e-3)
 
 
+def _generated_obj(tmp_path, n_tris=5120, seed=3):
+    from dxrvoxelizer_tpu.models.procedural import (
+        displaced_icosphere,
+        write_obj,
+    )
+
+    v, nr, t = displaced_icosphere(n_tris, seed=seed)
+    return load_obj(write_obj(tmp_path / f"ico_{n_tris}_{seed}.obj", v, nr, t))
+
+
 class TestSubdivide:
-    def test_counts_and_surface(self):
+    def test_counts_and_surface(self, tmp_path):
         from dxrvoxelizer_tpu.utils.objloader import subdivide
 
-        m = load_obj(find_asset("bunny.obj"))
+        m = _generated_obj(tmp_path)
         s = subdivide(m, 1)
         assert s.num_triangles == 4 * m.num_triangles
         # midpoints dedup: V' = V + E; for a closed triangle mesh E = 3T/2
@@ -182,13 +192,13 @@ class TestSubdivide:
             return float(np.linalg.norm(c, axis=1).sum())
         np.testing.assert_allclose(area(s), area(m), rtol=1e-4)
 
-    def test_voxelization_invariant(self):
+    def test_voxelization_invariant(self, tmp_path):
         """Subdivision leaves the surface unchanged -> parity grids agree."""
         from dxrvoxelizer_tpu.models.mesh import MeshBuffers
         from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
         from dxrvoxelizer_tpu.utils.objloader import subdivide
 
-        m = load_obj(find_asset("TuringBowl.obj"))
+        m = _generated_obj(tmp_path, n_tris=1280)
         s = subdivide(m, 1)
         b0 = MeshBuffers.from_obj(m)
         b1 = MeshBuffers.from_obj(s, bound=m.bound())
@@ -203,3 +213,63 @@ class TestSubdivide:
 
         cfg = parse_args(["-mesh", "dragon.obj", "-subdiv", "2"])
         assert cfg.subdiv == 2
+
+
+class TestProceduralMesh:
+    """The seeded generator behind chip_smoke.py and the benchmarks."""
+
+    @pytest.mark.parametrize("n_tris", [80, 1280, 81920])
+    def test_exact_count_and_closed(self, n_tris):
+        from dxrvoxelizer_tpu.models.procedural import displaced_icosphere
+
+        v, nr, t = displaced_icosphere(n_tris, seed=7)
+        assert t.shape == (n_tris, 3) and t.dtype == np.int32
+        assert v.shape == nr.shape and v.dtype == np.float32
+        # closed: every undirected edge has exactly two faces, and the
+        # two traverse it in opposite directions (consistent winding)
+        directed = np.concatenate([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]])
+        und = np.sort(directed, axis=1)
+        _, counts = np.unique(und, axis=0, return_counts=True)
+        assert (counts == 2).all()
+        assert len(np.unique(directed, axis=0)) == len(directed)
+        np.testing.assert_allclose(np.linalg.norm(nr, axis=1), 1.0,
+                                   atol=1e-5)
+        assert np.abs(v).max() < 1.0
+
+    def test_seeded(self):
+        from dxrvoxelizer_tpu.models.procedural import displaced_icosphere
+
+        a = displaced_icosphere(1280, seed=11)
+        b = displaced_icosphere(1280, seed=11)
+        c = displaced_icosphere(1280, seed=12)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert not np.array_equal(a[0], c[0])
+        np.testing.assert_array_equal(a[2], c[2])  # same topology
+
+    def test_bad_count_raises(self):
+        from dxrvoxelizer_tpu.models.procedural import displaced_icosphere
+
+        with pytest.raises(ValueError):
+            displaced_icosphere(1000)
+
+    def test_obj_roundtrip(self, tmp_path):
+        from dxrvoxelizer_tpu.models.procedural import displaced_icosphere
+
+        v, _, t = displaced_icosphere(320, seed=2)
+        m = _generated_obj(tmp_path, n_tris=320, seed=2)
+        assert m.num_triangles == 320
+        # the loader converts to the reference's D3D frame (z mirrored,
+        # winding reversed) and may reorder faces: the set of face
+        # centroids survives all of that
+        p = m.positions.copy()
+        p[:, 2] *= -1.0
+
+        def centroids(pos, tri):
+            c = pos[tri].mean(axis=1)
+            key = np.round(c, 4)  # order robust to last-bit differences
+            return c[np.lexsort(key.T[::-1])]
+
+        np.testing.assert_allclose(
+            centroids(p, m.triangles), centroids(v, t), atol=1e-6
+        )

@@ -11,8 +11,8 @@ from dxrvoxelizer_tpu.ops.raymarch_fast import (
 )
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
 from dxrvoxelizer_tpu.parallel import make_device_mesh, sharded_frame
-from tests.meshes import tetrahedron_mesh
-from tests.test_raymarch import _frame_consts
+from meshes import tetrahedron_mesh
+from test_raymarch import _frame_consts
 
 CLEAR = np.array([0.0, 0.2, 0.4], dtype=np.float32)
 
@@ -83,7 +83,7 @@ def test_multichip_deforming_voxelize_matches_single_chip():
     from dxrvoxelizer_tpu.ops.voxelize_queue import voxelize_parity_queue
     from dxrvoxelizer_tpu.parallel import make_device_mesh, sharded_voxelize
     from dxrvoxelizer_tpu.parallel.shard import queue_capacity
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     n = 32
     verts, _, tris = icosphere_mesh(2, radius=0.55)
@@ -101,14 +101,14 @@ def test_multichip_deforming_voxelize_matches_single_chip():
 
 
 def test_sharded_frame_fast_matches_single_path():
-    """Production shard_map frame (Pallas kernels, interpret mode) == the
+    """Production shard_map frame (kernels in interpret mode) == the
     single-device queue voxelize + shear-warp render."""
     from dxrvoxelizer_tpu.models.scene import FrameConstants
     from dxrvoxelizer_tpu.ops.packing import unpack_bits_z
     from dxrvoxelizer_tpu.ops import raymarch_warp as rw
     from dxrvoxelizer_tpu.ops.voxelize_queue import voxelize_parity_queue
     from dxrvoxelizer_tpu.parallel.shard import sharded_frame_fast
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     n, w, h = 32, 64, 64
     verts, _, tris = icosphere_mesh(2, radius=0.6)
@@ -135,7 +135,7 @@ def test_sharded_frame_fast_matches_single_path():
     density = unpack_bits_z(words, n).astype(jnp.float32)
     lv = rw.light_sweep_host(density, light_l, n)
     img_1 = np.asarray(rw.raymarch_shearwarp(
-        density, lv, s2l, eye_l, CLEAR, w, h, use_pallas=False,
+        density, lv, s2l, eye_l, CLEAR, w, h,
     ))
     assert np.isfinite(img_sh).all()
     np.testing.assert_allclose(img_sh, img_1, atol=2e-2)
@@ -151,7 +151,7 @@ def test_sharded_pipeline_full_orbit_matches_single_chip():
     from dxrvoxelizer_tpu.parallel import ShardedFramePipeline
     from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu.utils.objloader import ObjMesh
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     verts, norms, tris = icosphere_mesh(2, radius=0.6)
     world = verts * 2.0 + np.array([0, 4, 0], np.float32)
@@ -196,7 +196,7 @@ def test_sharded_raystab_query_bitexact_vs_single_device():
     from dxrvoxelizer_tpu.parallel.raystab_shard import (
         raystab_query2_sharded,
     )
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     v_np, n_np, t_np = icosphere_mesh(3, radius=0.08,
                                       center=(0.5, 0.3, -0.4))
@@ -224,8 +224,8 @@ def test_sharded_raystab_frame_matches_single_device_image():
     )
     from dxrvoxelizer_tpu.parallel.raystab_shard import sharded_frame_raystab
     from dxrvoxelizer_tpu.parallel.shard import frame_statics
-    from tests.meshes import icosphere_mesh
-    from tests.test_raymarch import _frame_consts
+    from meshes import icosphere_mesh
+    from test_raymarch import _frame_consts
 
     n, w, h = 16, 48, 32
     v_np, n_np, t_np = icosphere_mesh(2)
@@ -251,12 +251,12 @@ def test_sharded_raystab_frame_matches_single_device_image():
     # single-device reference: same query + same warp statics
     _, rgba = raystab_query2(v, nr, t, accel, interpret=True)
     density = quantize_r10g10b10a2(rgba)[..., 3]
-    waxis, wflip, wswap, m, res_win, l_axis, l_flip, *_rest = statics
+    waxis, wflip, wswap, m, l_axis, l_flip, *_rest = statics
     lv = rw.light_sweep(density, jnp.asarray(light_l), n, l_axis, l_flip)
     img1 = np.asarray(rw._shearwarp_core(
         density, lv, jnp.asarray(s2l), jnp.asarray(eye_l),
-        jnp.asarray(CLEAR), n, m, w, h, waxis, wflip, wswap, False,
-        res_win=res_win, y_off=jnp.float32(0.0),
+        jnp.asarray(CLEAR), n, m, w, h, waxis, wflip, wswap,
+        y_off=jnp.float32(0.0),
     ))
     assert img8.shape == img1.shape
     np.testing.assert_allclose(img8, img1, atol=2e-6)
@@ -265,7 +265,7 @@ def test_sharded_raystab_frame_matches_single_device_image():
 def _scene_for_pipeline():
     from dxrvoxelizer_tpu.models.scene import Scene
     from dxrvoxelizer_tpu.utils.objloader import ObjMesh
-    from tests.meshes import icosphere_mesh
+    from meshes import icosphere_mesh
 
     verts, norms, tris = icosphere_mesh(2, radius=0.6)
     world = verts * 2.0 + np.array([0, 4, 0], np.float32)
@@ -344,7 +344,7 @@ def test_sharded_pipeline_raystab_contracts():
     from dxrvoxelizer_tpu.parallel.pipeline import ShardedFramePipeline
     from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
     from dxrvoxelizer_tpu.utils.objloader import ObjMesh
-    from tests.meshes import tetrahedron_mesh
+    from meshes import tetrahedron_mesh
 
     verts, normals, tris = tetrahedron_mesh()
     buffers = MeshBuffers.from_obj(ObjMesh(
@@ -373,8 +373,8 @@ def test_sharded_deforming_raystab_frame_matches_single_device():
         sharded_frame_raystab_deforming,
     )
     from dxrvoxelizer_tpu.parallel.shard import frame_statics
-    from tests.meshes import icosphere_mesh
-    from tests.test_raymarch import _frame_consts
+    from meshes import icosphere_mesh
+    from test_raymarch import _frame_consts
 
     n, w, h = 16, 48, 32
     v_np, n_np, t_np = icosphere_mesh(2)
@@ -403,12 +403,12 @@ def test_sharded_deforming_raystab_frame_matches_single_device():
     accel_t = rf.refit(v_t, nr, check=True)
     _, rgba = raystab_query2(v_t, nr, t, accel_t, interpret=True)
     density = quantize_r10g10b10a2(rgba)[..., 3]
-    waxis, wflip, wswap, m, res_win, l_axis, l_flip, *_rest = statics
+    waxis, wflip, wswap, m, l_axis, l_flip, *_rest = statics
     lv = rw.light_sweep(density, jnp.asarray(light_l), n, l_axis, l_flip)
     img1 = np.asarray(rw._shearwarp_core(
         density, lv, jnp.asarray(s2l), jnp.asarray(eye_l),
-        jnp.asarray(CLEAR), n, m, w, h, waxis, wflip, wswap, False,
-        res_win=res_win, y_off=jnp.float32(0.0),
+        jnp.asarray(CLEAR), n, m, w, h, waxis, wflip, wswap,
+        y_off=jnp.float32(0.0),
     ))
     assert img8.shape == img1.shape
     np.testing.assert_allclose(img8, img1, atol=2e-6)

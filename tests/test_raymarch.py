@@ -10,7 +10,7 @@ from dxrvoxelizer_tpu.models.camera import OrbitCamera
 from dxrvoxelizer_tpu.models.scene import Scene
 from dxrvoxelizer_tpu.ops.raymarch_ref import compute_start_point, raymarch_ref
 from dxrvoxelizer_tpu.utils import dxmath as dxm
-from tests.meshes import box_mesh
+from meshes import box_mesh
 
 CLEAR = np.array([0.0, 0.2, 0.4], dtype=np.float32)
 

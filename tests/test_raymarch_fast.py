@@ -13,8 +13,8 @@ from dxrvoxelizer_tpu.ops.raymarch_fast import (
 )
 from dxrvoxelizer_tpu.ops.raymarch_ref import raymarch_ref
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
-from tests.meshes import box_mesh, tetrahedron_mesh
-from tests.test_raymarch import _frame_consts
+from meshes import box_mesh, tetrahedron_mesh
+from test_raymarch import _frame_consts
 
 CLEAR = np.array([0.0, 0.2, 0.4], dtype=np.float32)
 

@@ -239,18 +239,17 @@ def test_accel2_chunk_skip_dense_cone_bitexact():
 
 
 def test_fused_fold_matches_standalone_fold():
-    """The fused kernels' (t, id) must be bit-identical to
-    stab_closest_hit2's fold on every class — including gen-5 classes
-    whose lane-aligned tables are fed to the classic kernel through a
-    transpose — and the extracted channels must be the finished rgba rows
-    (the select-overwrite extraction must not disturb the fold it is
-    interleaved with). Uses the dense-cone fixture so multi-chunk classes
-    with skip bounds are exercised in BOTH layouts."""
+    """The fold kernel's (t, id) must be bit-identical to the plain fold
+    (raystab_fast.fold_extract_xla, which never skips a chunk) on every
+    class — in both table layouts — and the extracted channels must be
+    the finished rgba rows (the chunk skip and the winner extraction must
+    not disturb the fold). Uses the dense-cone fixture so multi-chunk
+    classes with skip bounds are exercised in BOTH layouts."""
     from dxrvoxelizer_tpu.ops.raystab_fast import (
         fold_extract_dispatch,
+        fold_extract_xla,
         table_k,
     )
-    from dxrvoxelizer_tpu.ops.raystab_pallas import stab_closest_hit2
 
     v_np, n_np, t_np = icosphere_mesh(3, radius=0.08,
                                       center=(0.5, 0.3, -0.4))
@@ -269,10 +268,10 @@ def test_fused_fold_matches_standalone_fold():
             checked_lanes |= lanes
             cf_cl = (
                 jnp.swapaxes(coefs, -1, -2) if lanes else coefs
-            )  # classic [C, K, 12] view for the standalone fold + numpy
+            )  # classic [C, K, 12] view for the numpy recompute
             nt_cl = jnp.swapaxes(ntab, -1, -2) if lanes else ntab
-            t_ref, i_ref = stab_closest_hit2(
-                rays, cf_cl, k, interpret=True, bounds=bounds
+            t_ref, i_ref, _ = fold_extract_xla(
+                rays, coefs, ntab, k, tc, 0.12, bounds=bounds
             )
             t_f, i_f, ns = fold_extract_dispatch(
                 rays, coefs, ntab, k, tc, 0.12, interpret=True,

@@ -1,10 +1,12 @@
-"""Direction-space-binned ray-stab voxelizer vs the brute-force oracle.
+"""Direction-space-binned ray-stab voxelizer vs the brute-force oracles.
 
-The fast path (ops/raystab_fast.py) must reproduce the oracle's occupancy
-bit-for-bit: same Moller-Trumbore expressions (ops/intersect.py mt_hit) and
-the same winner rule (strictly closer t, ties to the lowest triangle index).
-Normal grids agree to float rounding (the winning u, v are recomputed in a
-different broadcast shape).
+The production query (gen-6/7 tables, ops/raystab_fast.py) must reproduce
+the radial oracle bit-for-bit: same radial expressions (ops/intersect.py
+radial_hit) and the same winner rule (strictly closer t, ties to the
+lowest triangle index). The gen-1 gather query reproduces the
+Moller-Trumbore oracle's occupancy (same mt_hit expressions); its normals
+agree to float rounding (the winning u, v are recomputed in a different
+broadcast shape).
 """
 
 import numpy as np
@@ -17,8 +19,11 @@ from dxrvoxelizer_tpu.ops.raystab_fast import (
     raystab_query,
     voxelize_raystab_fast,
 )
-from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_raystab_ref
-from tests.meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
+from dxrvoxelizer_tpu.ops.voxelize_ref import (
+    voxelize_raystab_radial_ref,
+    voxelize_raystab_ref,
+)
+from meshes import box_mesh, icosphere_mesh, tetrahedron_mesh
 
 
 def _cases():
@@ -37,7 +42,7 @@ def test_fast_matches_oracle(name):
     v, nr, t = _cases()[name]
     v, nr, t = jnp.asarray(v), jnp.asarray(nr), jnp.asarray(t, jnp.int32)
     n = 32
-    occ_r, rgba_r = voxelize_raystab_ref(v, nr, t, n=n, ray_chunk=2048)
+    occ_r, rgba_r = voxelize_raystab_radial_ref(v, nr, t, n=n)
     occ_f, rgba_f = voxelize_raystab_fast(v, nr, t, n=n)
     assert (np.asarray(occ_r) == np.asarray(occ_f)).all()
     np.testing.assert_allclose(
@@ -50,7 +55,7 @@ def test_build_then_query_reuses_accel():
     v, nr, t = jnp.asarray(v), jnp.asarray(nr), jnp.asarray(t, jnp.int32)
     accel = build_raystab_accel(v, t, n=32)
     occ1, _ = raystab_query(v, nr, t, accel)
-    occ2, _ = voxelize_raystab_fast(v, nr, t, n=32)
+    occ2, _ = voxelize_raystab_ref(v, nr, t, n=32, ray_chunk=2048)
     assert (np.asarray(occ1) == np.asarray(occ2)).all()
     # the ico bins into cells (not everything overflows)
     assert sum(int(c[0].shape[0]) for c in accel.classes) > 0
@@ -83,7 +88,7 @@ def test_pipeline_caches_accel_and_rebuilds_on_deform():
     from dxrvoxelizer_tpu.core.pipeline import FramePipeline
     from dxrvoxelizer_tpu.models.mesh import MeshBuffers
     from dxrvoxelizer_tpu.utils.config import VoxelizerConfig
-    from tests.test_mips import _consts
+    from test_mips import _consts
 
     v, nr, t = _cases()["ico"]
     mesh = MeshBuffers(
@@ -108,15 +113,19 @@ def test_pipeline_caches_accel_and_rebuilds_on_deform():
 
 @pytest.mark.parametrize("name", ["tet", "box", "ico"])
 def test_pallas_query_matches_oracle(name):
-    """The streaming Pallas kernel (interpret mode) is bit-exact too."""
+    """The fold kernel (interpret mode) over the gen-6 tables is bit-exact
+    against the radial oracle, normals included."""
+    from dxrvoxelizer_tpu.ops.raystab_fast import (
+        build_raystab_accel2,
+        raystab_query2,
+    )
+
     v, nr, t = _cases()[name]
     v, nr, t = jnp.asarray(v), jnp.asarray(nr), jnp.asarray(t, jnp.int32)
     n = 32
-    occ_r, rgba_r = voxelize_raystab_ref(v, nr, t, n=n, ray_chunk=2048)
-    accel = build_raystab_accel(v, t, n=n)
-    occ_p, rgba_p = raystab_query(
-        v, nr, t, accel, impl="pallas", interpret=True
-    )
+    occ_r, rgba_r = voxelize_raystab_radial_ref(v, nr, t, n=n)
+    accel = build_raystab_accel2(v, t, nr, n=n)
+    occ_p, rgba_p = raystab_query2(v, nr, t, accel, interpret=True)
     assert (np.asarray(occ_r) == np.asarray(occ_p)).all()
     np.testing.assert_array_equal(np.asarray(rgba_r), np.asarray(rgba_p))
 

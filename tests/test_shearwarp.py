@@ -1,5 +1,5 @@
-"""Shear-warp renderer tests: warp primitives, light sweep, Pallas resolve,
-and image agreement with the exact reference renderer."""
+"""Shear-warp renderer tests: warp primitives, light sweep, the bilinear
+screen resolve, and image agreement with the exact reference renderer."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,14 +7,14 @@ import numpy as np
 from dxrvoxelizer_tpu.ops.raymarch_fast import precompute_light_volume
 from dxrvoxelizer_tpu.ops.raymarch_ref import raymarch_ref
 from dxrvoxelizer_tpu.ops.raymarch_warp import (
+    bilinear_take,
     light_sweep_host,
     raymarch_shearwarp,
 )
-from dxrvoxelizer_tpu.ops.screen_warp_pallas import bilinear_resolve
 from dxrvoxelizer_tpu.ops.voxelize_ref import voxelize_parity_ref
 from dxrvoxelizer_tpu.ops.warp import interp_matrix, scale_offset_coords, warp2d
-from tests.meshes import box_mesh, tetrahedron_mesh
-from tests.test_raymarch import _frame_consts
+from meshes import box_mesh, tetrahedron_mesh
+from test_raymarch import _frame_consts
 
 CLEAR = np.array([0.0, 0.2, 0.4], dtype=np.float32)
 
@@ -80,28 +80,35 @@ def test_light_sweep_close_to_gather_reference():
     assert diff.mean() < 0.03, diff.mean()
 
 
+def _bilinear_reference(img, x, y):
+    """Independent edge-clamped bilinear sampler (scipy, order 1)."""
+    from scipy.ndimage import map_coordinates
+
+    m = img.shape[0]
+    xc = np.clip(np.asarray(x, np.float64), 0.0, m - 1.0)
+    yc = np.clip(np.asarray(y, np.float64), 0.0, m - 1.0)
+    return map_coordinates(
+        np.asarray(img, np.float64), [xc, yc], order=1, mode="nearest"
+    )
+
+
 def test_bilinear_resolve_matches_xla(tmp_path):
-    # indices must be tile-coherent (row span <= 16 per 1024-lane tile), the
-    # invariant real screen tiles satisfy; columns may be arbitrary
+    """The resolve's bilinear read vs an independent sampler, including
+    points outside the intermediate (edge clamps on every side)."""
     rng = np.random.default_rng(1)
     sc = jnp.asarray(rng.random((128, 128)), jnp.float32)
-    tr = jnp.asarray(rng.random((128, 128)), jnp.float32)
     p = 3000
-    pad = (-p) % 1024
-    idx = np.arange(p + pad)
-    sub = (idx // 128) % 8
-    tile = idx // 1024
-    gx_full = tile * 30.0 + sub * 1.7 + rng.random(p + pad) * 1.5 - 4.0
-    gy_full = rng.random(p + pad) * 140 - 6
-    gx = jnp.asarray(gx_full[:p], jnp.float32)
-    gy = jnp.asarray(gy_full[:p], jnp.float32)
-    a_sc, a_tr = bilinear_resolve(sc, tr, gx, gy, interpret=True)
-    from dxrvoxelizer_tpu.ops.raymarch_warp import _bilinear_take
-
-    e_sc = _bilinear_take(sc, gx, gy, 128)
-    e_tr = _bilinear_take(tr, gx, gy, 128)
-    np.testing.assert_allclose(np.asarray(a_sc), np.asarray(e_sc), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(a_tr), np.asarray(e_tr), atol=1e-5)
+    gx = jnp.asarray(rng.random(p) * 140 - 6, jnp.float32)
+    gy = jnp.asarray(rng.random(p) * 140 - 6, jnp.float32)
+    got = np.asarray(bilinear_take(sc, gx, gy, 128))
+    np.testing.assert_allclose(got, _bilinear_reference(sc, gx, gy),
+                               atol=1e-5)
+    # exact texel centers read the texel itself
+    i = jnp.asarray([0.0, 5.0, 127.0], jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(bilinear_take(sc, i, i, 128)),
+        np.asarray(sc)[[0, 5, 127], [0, 5, 127]],
+    )
 
 
 def _compare_vs_ref(density, w, h, n, atol_mean):
@@ -115,7 +122,7 @@ def _compare_vs_ref(density, w, h, n, atol_mean):
     lv = light_sweep_host(density, light_l, n)
     img = np.asarray(
         raymarch_shearwarp(
-            density, lv, s2l, eye_l, CLEAR, w, h, use_pallas=False,
+            density, lv, s2l, eye_l, CLEAR, w, h,
         )
     )
     assert img.shape == ref.shape
@@ -130,7 +137,7 @@ def test_shearwarp_empty_grid_is_clear():
     s2l, eye_l, light_l = _frame_consts(w, h)
     lv = light_sweep_host(density, light_l, 32)
     img = np.asarray(
-        raymarch_shearwarp(density, lv, s2l, eye_l, CLEAR, w, h, use_pallas=False)
+        raymarch_shearwarp(density, lv, s2l, eye_l, CLEAR, w, h)
     )
     np.testing.assert_allclose(img, np.broadcast_to(CLEAR, img.shape), atol=1e-4)
 
@@ -144,26 +151,14 @@ def test_shearwarp_box_close_to_reference():
 
 
 def test_shearwarp_pallas_resolve_full_path():
-    # the real screen mapping through the Pallas resolver (interpret mode)
-    from jax.experimental.pallas import tpu as pltpu
-
+    """The real screen mapping through the resolve on a wide screen
+    (intermediate rows track screen-y after the swap) stays close to the
+    exact renderer."""
     verts, _, tris = box_mesh([-0.7, -0.5, -0.6], [0.4, 0.66, 0.55])
     density = voxelize_parity_ref(jnp.asarray(verts), jnp.asarray(tris), n=32).astype(
         jnp.float32
     )
-    w, h = 160, 96  # wide: screen tiles span > 1 row of pixels
-    s2l, eye_l, light_l = _frame_consts(w, h)
-    lv = light_sweep_host(density, light_l, 32)
-    img_xla = np.asarray(
-        raymarch_shearwarp(density, lv, s2l, eye_l, CLEAR, w, h, use_pallas=False)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        img_pal = np.asarray(
-            raymarch_shearwarp(density, lv, s2l, eye_l, CLEAR, w, h, use_pallas=True)
-        )
-    diff = np.abs(img_xla - img_pal)
-    # identical except where the 32-row window clamps (none expected here)
-    assert diff.max() < 1e-4, diff.max()
+    _compare_vs_ref(density, 160, 96, 32, atol_mean=0.03)
 
 
 def test_shearwarp_tet_close_to_reference():
@@ -175,30 +170,16 @@ def test_shearwarp_tet_close_to_reference():
 
 
 def test_resolver_wide_intermediates():
-    """The segmented-gather resolver matches the jnp bilinear fallback for
-    m in {128, 256, 512} (interpret mode)."""
-    import jax.numpy as jnp
-
-    from dxrvoxelizer_tpu.ops.raymarch_warp import _bilinear_take
-    from dxrvoxelizer_tpu.ops.screen_warp_pallas import bilinear_resolve
-
+    """The bilinear resolve matches the independent sampler for m in
+    {128, 256, 512} (the -quality cap)."""
     rng = np.random.default_rng(11)
     for m in (128, 256, 512):
         sc = jnp.asarray(rng.random((m, m)), jnp.float32)
-        tr = jnp.asarray(rng.random((m, m)), jnp.float32)
         p = 4096
-        # per-tile-coherent rows: each 1024-pixel tile's source rows must fit
-        # the resolver's window (the shear-warp geometry guarantees this;
-        # random rows would be clamped by design)
-        base = np.repeat(rng.uniform(0, m - 24, size=p // 1024), 1024)
-        gx = jnp.asarray(base + rng.uniform(0, 20, size=p), jnp.float32)
+        gx = jnp.asarray(rng.uniform(-1, m, size=p), jnp.float32)
         gy = jnp.asarray(rng.uniform(-1, m, size=p), jnp.float32)
-        got_sc, got_tr = bilinear_resolve(sc, tr, gx, gy, interpret=True)
-        exp_sc = _bilinear_take(sc, gx, gy, m)
-        exp_tr = _bilinear_take(tr, gx, gy, m)
-        np.testing.assert_allclose(np.asarray(got_sc), np.asarray(exp_sc),
-                                   atol=1e-5, err_msg=f"m={m}")
-        np.testing.assert_allclose(np.asarray(got_tr), np.asarray(exp_tr),
+        got = np.asarray(bilinear_take(sc, gx, gy, m))
+        np.testing.assert_allclose(got, _bilinear_reference(sc, gx, gy),
                                    atol=1e-5, err_msg=f"m={m}")
 
 

@@ -9,7 +9,7 @@ from dxrvoxelizer_tpu.ops.voxelize_ref import (
     voxelize_parity_ref,
     voxelize_raystab_ref,
 )
-from tests.meshes import (
+from meshes import (
     box_mesh,
     closest_hit_bruteforce,
     point_in_mesh_bruteforce,
